@@ -6,17 +6,27 @@
 Phases; any failure ends with a traceback and a non-zero exit:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   the CUDA kernels built from ``mini_tpu_torch/csrc/``;
+   the CUDA kernels built from ``mini_tpu_torch/csrc/``, one nvcc per
+   source, all started together;
 2. each kernel against its plain torch version on the card, at the main
-   path's shapes (RMAT scale 16), with the times of both;
+   path's shapes (RMAT scale 16), with the times of both; and a kernel
+   wrapper given inputs that require grad must raise;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
    weighted)`` and from 3 more reached sources: labels bitwise equal to
    ``bfs_cpu``, preds the host's min-id parent; time and MTEPS;
 4. the 2-layer GCN forward [128, 128, 32], float32 and bf16 messages, on
    ``erdos_renyi(2048, 16384)`` and the RMAT graph, against the float64
    oracle ``gcn_forward_cpu``;
-5. one JSON line of the kernels (launch counts of phases 3-4, errors of
-   phase 2, times), then the last line
+5. GCN training at the same width on the RMAT graph (``bench.py``'s
+   ``gcn_train_f32``/``gcn_train_bf16`` rows): the first step's loss and
+   gradients against the same step on ``impl="xla"``, 4 segment-sum and
+   0 SDDMM launches per step, the step time; then ER-2048 trained on a
+   teacher's labels until the loss falls below 0.7 of its first value;
+6. the SpMM weight gradient (the SDDMM kernel), ``sddmm`` in both edge
+   orders and ``spmm(impl="pallas_onehot")`` at RMAT scale 16, F=128,
+   against ``impl="xla"``;
+7. one JSON line of the kernels (launch counts of phases 3-6, each phase
+   counted from 0, errors of phase 2, times), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 With no CUDA device it exits non-zero before printing any result.
@@ -29,6 +39,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -36,6 +47,12 @@ SCALE = 16
 F_IN, F_HID, F_OUT = 128, 128, 32
 # kernel vs plain float sums: the same terms summed in another order
 SUM_TOL = 1e-5  # max abs error <= SUM_TOL * max|plain|
+# kernel vs plain SDDMM: a float32 dot of F terms against float64, per slot
+DOT_TOL = 1e-5  # |kernel - plain| <= DOT_TOL * (|y| . |msgs|) per slot
+# kernel path vs xla gradients (tests/test_spmm_banded.py:379's bound)
+GRAD_TOL = 1e-3  # max abs error <= GRAD_TOL * max|xla|
+BF16_TOL = 3e-2  # bf16 messages: about 3 significant digits
+N_CLASSES = F_OUT
 
 
 def log(msg: str) -> None:
@@ -72,8 +89,10 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     t0 = time.perf_counter()
-    for name in ("segreduce", "spmm_banded"):
-        path = _build.build(name)
+    names = ("segreduce", "spmm_banded")
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(_build.build, names))
+    for name, path in zip(names, paths):
         log(f"# built {os.path.relpath(path)} in "
             f"{_build.last_build_seconds[name]:.2f} s")
     log(f"# phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
@@ -81,7 +100,8 @@ def phase_build():
 
 
 def phase_kernels(g, device):
-    """Kernel 1 on the graph's CSC offsets, kernel 2 on its pull layout."""
+    """Kernel 1 on the graph's CSC offsets, kernels 2 and 3 on its pull
+    layout, kernel 2 with one band (``segment_sum``) on the CSC offsets."""
     import torch
 
     from mini_tpu_torch.graph.banded import get_layout
@@ -154,8 +174,99 @@ def phase_kernels(g, device):
                 t2 = (ms, plain_ms)
     stats["banded_segment_sum"] = dict(max_abs_err=err2, ms=t2[0],
                                        plain_ms=t2[1])
+
+    # a kernel's output carries no gradient: asked for one, it must raise
+    # (the streams of the last case above, made to require grad)
+    rg = [m.detach().float().requires_grad_() for m in msgs]
+    try:
+        k2.banded_segment_sum(dev["bounds"], dev["offs2d"], rg)
+    except RuntimeError as exc:
+        assert "cannot carry gradients" in str(exc), exc
+    else:
+        raise AssertionError("banded_segment_sum returned a result without "
+                             "gradients for inputs that require grad")
+    log("# banded_segment_sum refuses inputs that require grad")
+
+    stats["banded_sddmm"] = check_sddmm(layout, dev, rng, device)
+    stats["segment_sum"] = check_segment_sum(g, rng, device)
     log("# phase 2: kernels match their plain versions")
     return stats
+
+
+def check_sddmm(layout, dev, rng, device):
+    """Kernel 3 on the pull layout, F=128, y float32, messages float32 and
+    bf16 (the weight cotangent's operands)."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    x = torch.from_numpy(rng.rand(layout.n_pad, F_HID).astype(np.float32)
+                         - 0.5).to(device)
+    y = torch.from_numpy(rng.rand(layout.n_pad, F_HID).astype(np.float32)
+                         - 0.5).to(device)
+    real = torch.zeros(layout.total_padded, dtype=torch.bool, device=device)
+    base = 0
+    for k in range(layout.K):
+        real[base: base + int(layout.bounds[k, -1])] = True
+        base += len(layout.ids[k])
+    err3, t3 = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        msgs = []
+        for k in range(layout.K):
+            lo = k * layout.band_rows
+            hi = min(lo + layout.band_rows, layout.n_pad)
+            msgs.append(torch.index_select(x[lo:hi], 0, dev["ids"][k])
+                        .to(dtype))
+        args = (dev["bounds"], dev["offs2d"], msgs, y)
+        got = k2.banded_sddmm(*args)
+        want = k2.banded_sddmm_plain(*args)
+        mag = k2.banded_sddmm_plain(dev["bounds"], dev["offs2d"],
+                                    [m.abs() for m in msgs], y.abs())
+        torch.cuda.synchronize(device)
+        diff = (got - want).abs()
+        ratio = float((diff / mag.clamp(min=1e-30))[real].max())
+        assert ratio <= DOT_TOL, (dtype, ratio)
+        assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
+        err = float(diff.max())
+        err3 = max(err3, err)
+        ms = cuda_ms(lambda: k2.banded_sddmm(*args), device)
+        plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args), device)
+        log(f"# banded_sddmm F={F_HID} {str(dtype)[6:]} K={layout.K}: err "
+            f"{err:.3g} (max per-slot ratio {ratio:.3g}, bound {DOT_TOL}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if dtype == torch.float32:
+            t3 = (ms, plain_ms)
+    return dict(max_abs_err=err3, ms=t3[0], plain_ms=t3[1])
+
+
+def check_segment_sum(g, rng, device):
+    """Kernel 2 launched with one band, as ``segment_sum``, on the CSC
+    offsets: the weighted messages of ``spmm(impl="pallas_onehot")``."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import spmm_kernel as k4
+
+    x = torch.from_numpy(rng.rand(g.n_pad, F_HID).astype(np.float32)
+                         - 0.5).to(device)
+    err4, t4 = 0.0, None
+    for dtype in (torch.float32, torch.bfloat16):
+        msgs = (torch.index_select(x, 0, g.csc_srcs)
+                * g.csc_weights[:, None]).to(dtype)
+        args = (g.col_offsets, g.csc_dsts, msgs)
+        got = k4.segment_sum(*args)
+        want = k4.segment_sum_plain(*args)
+        torch.cuda.synchronize(device)
+        err = float((got - want).abs().max())
+        bound = SUM_TOL * float(want.abs().max())
+        assert err <= bound, (dtype, err, bound)
+        err4 = max(err4, err)
+        ms = cuda_ms(lambda: k4.segment_sum(*args), device)
+        plain_ms = cuda_ms(lambda: k4.segment_sum_plain(*args), device)
+        log(f"# segment_sum F={F_HID} {str(dtype)[6:]} K=1: err {err:.3g} "
+            f"(bound {bound:.3g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if dtype == torch.float32:
+            t4 = (ms, plain_ms)
+    return dict(max_abs_err=err4, ms=t4[0], plain_ms=t4[1])
 
 
 def host_min_parent(hg, labels):
@@ -236,6 +347,178 @@ def phase_gcn(name, hg, g, device):
         f"gcn_forward_cpu")
 
 
+def max_rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_train(g, device):
+    """bench.py's gcn_train_f32 / gcn_train_bf16 rows on the RMAT graph."""
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, erdos_renyi
+    from mini_tpu_torch.models.gcn import (
+        gcn_forward, gcn_init, gcn_init_opt, gcn_normalize, gcn_train_step,
+    )
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+    from mini_tpu_torch.utils.timing import time_fn
+
+    norm = gcn_normalize(g)
+    x = torch.from_numpy(np.random.RandomState(0).rand(g.n_pad, F_IN)
+                         .astype(np.float32)).to(device)
+    labels = torch.from_numpy(np.random.RandomState(1).randint(
+        0, N_CLASSES, g.n_pad)).to(device)
+    mask = torch.arange(g.n_pad, device=device) < g.n
+    params = gcn_init(torch.Generator().manual_seed(2),
+                      [F_IN, F_HID, F_OUT], device=device)
+    opt = gcn_init_opt(params)
+
+    def step(impl, mdt=None):
+        before = (k2.launches, k2.sddmm_launches)
+        out = gcn_train_step(params, opt, g, norm, x, (labels, mask), 1e-2,
+                             impl=impl, message_dtype=mdt)
+        if impl == "banded":  # 2 forward sums, 2 dx sums, no SDDMM
+            counts = (k2.launches - before[0], k2.sddmm_launches - before[1])
+            assert counts == (4, 0), counts
+        return out
+
+    # from zero momentum the new momentum is the gradient itself
+    _, grads_ref, loss_ref = step("xla")
+    for mdt, tol in ((None, GRAD_TOL), (torch.bfloat16, BF16_TOL)):
+        _, grads, loss = step("banded", mdt)
+        assert torch.isfinite(loss)
+        np.testing.assert_allclose(float(loss), float(loss_ref),
+                                   rtol=1e-4 if mdt is None else tol)
+        errs = [max_rel(gr[k], ref[k]) for gr, ref in zip(grads, grads_ref)
+                for k in ("w", "b")]
+        assert max(errs) <= tol, (mdt, errs)
+        log(f"# gcn train step {'f32' if mdt is None else 'bf16'}: loss "
+            f"{float(loss):.6f} (xla {float(loss_ref):.6f}); grad max "
+            f"err/max|xla| {max(errs):.3g} (bound {tol})")
+    for mdt in (None, torch.bfloat16):
+        with torch.no_grad():
+            fwd = time_fn(lambda: gcn_forward(params, g, norm, x,
+                                              message_dtype=mdt),
+                          warmup=1, repeat=5, device=device)
+        t = time_fn(lambda: step("banded", mdt), warmup=1, repeat=5,
+                    device=device)
+        log(f"# gcn train rmat{SCALE} {'f32' if mdt is None else 'bf16'}: "
+            f"step {t.min_s * 1e3:.3f} ms, forward {fwd.min_s * 1e3:.3f} ms "
+            f"(min of 5); step/forward {t.min_s / fwd.min_s:.2f}")
+    t = time_fn(lambda: step("xla"), warmup=1, repeat=5, device=device)
+    log(f"# gcn train rmat{SCALE} xla f32: step {t.min_s * 1e3:.3f} ms")
+
+    # the flagship graph learns a teacher's labels (tests/test_gcn.py:45-59)
+    g_er = GraphSlice.from_host(
+        erdos_renyi(2048, 16384, seed=0, undirected=True), device=device)
+    norm_er = gcn_normalize(g_er)
+    x_er = torch.from_numpy(np.random.RandomState(0).rand(g_er.n_pad, F_IN)
+                            .astype(np.float32) - 0.5).to(device)
+    teacher = gcn_init(torch.Generator().manual_seed(99),
+                       [F_IN, F_HID, F_OUT], device=device)
+    with torch.no_grad():
+        y_er = torch.argmax(gcn_forward(teacher, g_er, norm_er, x_er), -1)
+    mask_er = torch.arange(g_er.n_pad, device=device) < g_er.n
+    p = gcn_init(torch.Generator().manual_seed(2), [F_IN, F_HID, F_OUT],
+                 device=device)
+    o = gcn_init_opt(p)
+    losses = []
+    for _ in range(100):
+        p, o, loss = gcn_train_step(p, o, g_er, norm_er, x_er,
+                                    (y_er, mask_er), 0.2, impl="banded")
+        losses.append(float(loss))
+    below = [i + 1 for i, v in enumerate(losses) if v < 0.7 * losses[0]]
+    assert below, (losses[0], min(losses))
+    with torch.no_grad():
+        pred = torch.argmax(gcn_forward(p, g_er, norm_er, x_er), -1)
+    acc = float((pred == y_er)[mask_er].float().mean())
+    log(f"# phase 5: gcn train er2048 lr 0.2: loss {losses[0]:.4f} -> below "
+        f"0.7x at step {below[0]}, {losses[-1]:.4f} after 100 steps, "
+        f"teacher-label accuracy {acc:.4f}")
+
+
+def phase_grad(g, device):
+    """The SpMM weight gradient (kernel 3 in the backward), sddmm and the
+    pallas_onehot route at RMAT scale 16, F=128, against impl="xla"."""
+    import torch
+
+    from mini_tpu_torch.ops import sddmm, spmm
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    rng = np.random.RandomState(3)
+    x0 = torch.from_numpy(rng.rand(g.n_pad, F_HID).astype(np.float32)
+                          - 0.5).to(device)
+    w0 = torch.from_numpy(rng.rand(g.m_pad).astype(np.float32)
+                          + 0.5).to(device)
+    grads = {}
+    for impl in ("banded", "xla"):
+        x = x0.clone().requires_grad_()
+        w = w0.clone().requires_grad_()
+        before = k2.sddmm_launches
+        out = spmm(g, x, "pull", weights=w, impl=impl)
+        grads[impl] = torch.autograd.grad(torch.sin(out).sum(), (x, w))
+        if impl == "banded":
+            assert k2.sddmm_launches - before == 1
+    errs = [max_rel(b, r) for b, r in zip(grads["banded"], grads["xla"])]
+    assert max(errs) <= GRAD_TOL, errs
+    assert torch.all(grads["banded"][1][~g.edge_mask_csc] == 0)
+    log(f"# spmm grad (x, w) vs xla: max err/max|xla| {errs[0]:.3g}, "
+        f"{errs[1]:.3g} (bound {GRAD_TOL}); masked edges exactly 0")
+
+    xr = torch.from_numpy(rng.rand(g.n_pad, F_HID).astype(np.float32)
+                          - 0.5).to(device)
+    for order in ("csr", "csc"):
+        got = sddmm(g, x0, xr, order=order, impl="banded")
+        ref = sddmm(g, x0, xr, order=order, impl="xla")
+        mag = sddmm(g, x0.abs(), xr.abs(), order=order, impl="xla") + 1e-6
+        err = float(((got - ref).abs() / mag).max())
+        assert err <= 1e-4, (order, err)
+        log(f"# sddmm {order} banded vs xla: max err/magnitude {err:.3g} "
+            f"(bound 1e-4)")
+
+    # against xla in float64, since both float32 sums round
+    got = spmm(g, x0, impl="pallas_onehot")
+    ref = spmm(g, x0.double(), impl="xla").float()
+    err = float((got - ref).abs().max())
+    bound = SUM_TOL * float(ref.abs().max())
+    assert err <= bound, (err, bound)
+    log(f"# phase 6: spmm pallas_onehot vs xla (float64): err {err:.3g} "
+        f"(bound {bound:.3g})")
+
+
+# kernel -> (wrapper module, its launch counter, source, the TPU kernel)
+KERNELS = {
+    "segment_reduce": ("segreduce_kernel", "launches",
+                       "mini_tpu_torch/csrc/segreduce.cu",
+                       "mini_tpu/ops/pallas/segreduce_kernel.py:155"),
+    "banded_segment_sum": ("spmm_banded", "launches",
+                           "mini_tpu_torch/csrc/spmm_banded.cu",
+                           "mini_tpu/ops/pallas/spmm_banded.py:65"),
+    "banded_sddmm": ("spmm_banded", "sddmm_launches",
+                     "mini_tpu_torch/csrc/spmm_banded.cu",
+                     "mini_tpu/ops/pallas/spmm_banded.py:279"),
+    "segment_sum": ("spmm_kernel", "launches",
+                    "mini_tpu_torch/csrc/spmm_banded.cu",
+                    "mini_tpu/ops/pallas/spmm_kernel.py:113"),
+}
+
+
+def drive(path: str, fn, *args) -> dict:
+    """Run one main path with every launch counter set to 0 just before
+    it; return the counts read just after."""
+    import importlib
+
+    mods = {name: importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}")
+            for name, (m, _, _, _) in KERNELS.items()}
+    for name, (_, attr, _, _) in KERNELS.items():
+        setattr(mods[name], attr, 0)
+    fn(*args)
+    counts = {name: getattr(mods[name], attr)
+              for name, (_, attr, _, _) in KERNELS.items()}
+    log(f"# launches on {path}: {json.dumps(counts)}")
+    return counts
+
+
 def main() -> None:
     import torch
 
@@ -244,8 +527,6 @@ def main() -> None:
                  "is False)")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi, rmat
-    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
-    from mini_tpu_torch.ops.kernels import spmm_banded as k2
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -260,30 +541,27 @@ def main() -> None:
         f"(host build {time.perf_counter() - t0:.2f} s)")
     stats = phase_kernels(g, device)
 
-    # the main path: every launch from here on is counted
-    k1.launches = 0
-    k2.launches = 0
-    phase_bfs(hg, g, device)
     hg_er = erdos_renyi(2048, 16384, seed=0, undirected=True)
-    phase_gcn("er2048", hg_er, GraphSlice.from_host(hg_er, device=device),
-              device)
-    phase_gcn(f"rmat{SCALE}", hg, g, device)
-    launches = {"segment_reduce": k1.launches,
-                "banded_segment_sum": k2.launches}
+
+    def gcn_forward_path():
+        phase_gcn("er2048", hg_er,
+                  GraphSlice.from_host(hg_er, device=device), device)
+        phase_gcn(f"rmat{SCALE}", hg, g, device)
+
+    paths = [
+        drive("bfs", phase_bfs, hg, g, device),
+        drive("gcn_forward", gcn_forward_path),
+        drive("gcn_train", phase_train, g, device),
+        drive("spmm_grad_sddmm", phase_grad, g, device),
+    ]
+    launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():
         assert count > 0, f"{name} was not launched on the main path"
 
     kernels = [
-        dict(name="segment_reduce", route="cuda",
-             source="mini_tpu_torch/csrc/segreduce.cu",
-             replaces="mini_tpu/ops/pallas/segreduce_kernel.py:155",
-             launches=launches["segment_reduce"],
-             **stats["segment_reduce"]),
-        dict(name="banded_segment_sum", route="cuda",
-             source="mini_tpu_torch/csrc/spmm_banded.cu",
-             replaces="mini_tpu/ops/pallas/spmm_banded.py:65",
-             launches=launches["banded_segment_sum"],
-             **stats["banded_segment_sum"]),
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches[name], **stats[name])
+        for name, (_, _, source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

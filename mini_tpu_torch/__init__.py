@@ -26,4 +26,5 @@ from mini_tpu_torch.ops import (  # noqa: F401
     filter_frontier,
     compute,
     spmm,
+    sddmm,
 )

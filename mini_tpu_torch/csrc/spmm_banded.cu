@@ -25,6 +25,29 @@
 // messages runs outside the kernel (so messages make a round trip through
 // device memory), a hub row serializes onto one warp, and loads are 4 B
 // (2 B for bf16) per thread rather than 16 B.
+//
+// The same one-band launch (K = 1, bounds = offsets[::128], offs2d =
+// offsets[:-1]) is the Hopper form of mini_tpu/ops/pallas/spmm_kernel.py,
+// segment_sum_pallas: a CSC segment sum is a banded layout with one band.
+//
+// Banded SDDMM, the second entry point below:
+//   dw[base_k + j] = <y[dst(k, j), :], msgs[k][j, :]>
+// for every slot j < bounds[k, n_tiles] of band k, where dst(k, j) is the
+// row whose staircase segment holds j; slots past the band's end are 0.
+// It replaces mini_tpu/ops/pallas/spmm_banded.py, banded_sddmm.  The TPU
+// kernel walks 128-row output tiles and multiplies each 512-edge chunk
+// against the tile on the MXU, with a "pure chunk" path and a
+// read-modify-write of chunks that straddle two tiles, all of it because
+// its grid runs in order on one core.  Here the output is per slot, so the
+// kernel is edge-parallel: one warp owns 32 consecutive slots of one band,
+// finds the first slot's row by binary search (over bounds[k, :], then
+// over offs2d[t, k, :]) and walks forward.  Each lane holds columns
+// lane, lane + 32, ... of the current y row in registers, reloaded only
+// when the segment changes; a slot's dot product is a warp-shuffle sum.
+// Every slot is written exactly once, with no atomics: deterministic, and
+// a hub row spreads over as many warps as it has runs of 32 slots.
+// Bound by bytes like the sum: each message row is read once (y rows come
+// from cache), 2 operations per 4 bytes of float32 message.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,12 +59,22 @@ constexpr int kRowTile = 128;
 constexpr int kCols = 32;      // columns per block (threadIdx.x)
 constexpr int kRowGroups = 8;  // warps per block (threadIdx.y)
 constexpr int kMaxBands = 128;
+constexpr int kWarp = 32;
+constexpr int kSlotsPerWarp = 32;  // one output slot per lane
+constexpr int kSddmmWarps = 8;     // warps per block of the SDDMM
+constexpr int kColsPerLane = 8;    // y values a lane keeps in registers
+constexpr int kColBlock = kWarp * kColsPerLane;  // columns per pass
 
 enum { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
 
 // The K stream pointers travel by value in the kernel's parameters.
 struct StreamPtrs {
   const void* p[kMaxBands];
+};
+
+// Flat slot index of each band's first slot; base[K] is the total.
+struct StreamBases {
+  long long b[kMaxBands + 1];
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -71,6 +104,100 @@ banded_segment_sum_kernel(StreamPtrs msgs, const int* __restrict__ bounds,
     }
     out[(static_cast<size_t>(t) * kRowTile + r) * F + c] = acc;
   }
+}
+
+// Last index i in [0, n) with a[i] <= v, for a non-decreasing a with
+// a[0] <= v.
+__device__ __forceinline__ int last_le(const int* a, int n, int v) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a[mid] <= v) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+template <typename TM, typename TY>
+__global__ void __launch_bounds__(kWarp * kSddmmWarps)
+banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
+                    const int* __restrict__ bounds,
+                    const int* __restrict__ offs2d,
+                    const TY* __restrict__ y, float* __restrict__ out, int K,
+                    int n_tiles, int F, long long n_runs) {
+  const int lane = threadIdx.x % kWarp;
+  const long long run =
+      static_cast<long long>(blockIdx.x) * kSddmmWarps + threadIdx.x / kWarp;
+  if (run >= n_runs) return;
+  const long long s0 = run * kSlotsPerWarp;  // flat slot of lane 0
+  int k = 0;
+  while (k + 1 < K && base.b[k + 1] <= s0) ++k;
+  const int j0 = static_cast<int>(s0 - base.b[k]);
+  const int* bk = bounds + static_cast<size_t>(k) * (n_tiles + 1);
+  const int end = bk[n_tiles];  // the band's real slots are [0, end)
+  float acc = 0.0f;  // lane s accumulates slot j0 + s
+  if (j0 < end) {
+    const int j1 = min(j0 + kSlotsPerWarp, end);
+    // the segment (tile t0, row r0) holding slot j0; its end is > j0
+    const int t0 = last_le(bk, n_tiles, j0);
+    const int r0 =
+        last_le(offs2d + (static_cast<size_t>(t0) * K + k) * kRowTile,
+                kRowTile, j0);
+    const TM* m = static_cast<const TM*>(msgs.p[k]);
+    for (int c0 = 0; c0 < F; c0 += kColBlock) {
+      int t = t0, r = r0, row = -1;
+      float yv[kColsPerLane];
+      auto seg_end = [&](int tt, int rr) {
+        return rr + 1 < kRowTile
+                   ? offs2d[(static_cast<size_t>(tt) * K + k) * kRowTile +
+                            rr + 1]
+                   : bk[tt + 1];
+      };
+      int next = seg_end(t, r);
+      for (int j = j0; j < j1; ++j) {
+        while (j >= next) {  // skip to the segment that holds j
+          if (++r == kRowTile) {
+            r = 0;
+            ++t;
+          }
+          next = seg_end(t, r);
+        }
+        const int v = t * kRowTile + r;
+        if (v != row) {  // a new segment: its y row into registers
+          row = v;
+          const TY* yr = y + static_cast<size_t>(v) * F;
+#pragma unroll
+          for (int i = 0; i < kColsPerLane; ++i) {
+            const int c = c0 + lane + i * kWarp;
+            yv[i] = c < F ? to_f32(yr[c]) : 0.0f;
+          }
+        }
+        const TM* mj = m + static_cast<size_t>(j) * F;
+        float p = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kColsPerLane; ++i) {
+          const int c = c0 + lane + i * kWarp;
+          if (c < F) p += yv[i] * to_f32(mj[c]);
+        }
+#pragma unroll
+        for (int o = kWarp / 2; o > 0; o /= 2)
+          p += __shfl_xor_sync(0xffffffffu, p, o);
+        if (lane == j - j0) acc += p;
+      }
+    }
+  }
+  out[s0 + lane] = acc;
+}
+
+template <typename TM, typename TY>
+void launch_sddmm(const StreamPtrs& ptrs, const StreamBases& bases,
+                  const int* b, const int* o, const void* y, float* out,
+                  int K, int n_tiles, int F, long long n_runs,
+                  cudaStream_t s) {
+  const long long blocks = (n_runs + kSddmmWarps - 1) / kSddmmWarps;
+  banded_sddmm_kernel<TM, TY>
+      <<<static_cast<unsigned>(blocks), kWarp * kSddmmWarps, 0, s>>>(
+          ptrs, bases, b, o, static_cast<const TY*>(y), out, K, n_tiles, F,
+          n_runs);
 }
 
 }  // namespace
@@ -104,6 +231,53 @@ extern "C" int banded_segment_sum_launch(const void* const* msg_ptrs, int K,
         ptrs, b, o, y, K, n_tiles, F);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// msg_ptrs, lens: host arrays of K device pointers and K stream lengths
+// (each a multiple of 32).  out: float32 [sum(lens)].  msg_dtype, y_dtype:
+// DT_FLOAT32 or DT_BFLOAT16.  Returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for bad arguments.
+extern "C" int banded_sddmm_launch(const void* const* msg_ptrs,
+                                   const long long* lens, int K,
+                                   const void* bounds, const void* offs2d,
+                                   const void* y, void* out, int n_tiles,
+                                   int F, int msg_dtype, int y_dtype,
+                                   void* stream) {
+  const auto dtype_ok = [](int d) {
+    return d == DT_FLOAT32 || d == DT_BFLOAT16;
+  };
+  if (K < 1 || K > kMaxBands || n_tiles < 1 || F < 1 ||
+      !dtype_ok(msg_dtype) || !dtype_ok(y_dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamPtrs ptrs = {};
+  StreamBases bases = {};
+  for (int k = 0; k < K; ++k) {
+    if (lens[k] < 0 || lens[k] % kSlotsPerWarp)
+      return static_cast<int>(cudaErrorInvalidValue);
+    ptrs.p[k] = msg_ptrs[k];
+    bases.b[k + 1] = bases.b[k] + lens[k];
+  }
+  const long long n_runs = bases.b[K] / kSlotsPerWarp;
+  if (n_runs == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* b = static_cast<const int*>(bounds);
+  const int* o = static_cast<const int*>(offs2d);
+  float* dw = static_cast<float*>(out);
+  const int code = msg_dtype * 2 + y_dtype;
+  if (code == DT_FLOAT32 * 2 + DT_FLOAT32) {
+    launch_sddmm<float, float>(ptrs, bases, b, o, y, dw, K, n_tiles, F,
+                               n_runs, s);
+  } else if (code == DT_FLOAT32 * 2 + DT_BFLOAT16) {
+    launch_sddmm<float, __nv_bfloat16>(ptrs, bases, b, o, y, dw, K, n_tiles,
+                                       F, n_runs, s);
+  } else if (code == DT_BFLOAT16 * 2 + DT_FLOAT32) {
+    launch_sddmm<__nv_bfloat16, float>(ptrs, bases, b, o, y, dw, K, n_tiles,
+                                       F, n_runs, s);
+  } else {
+    launch_sddmm<__nv_bfloat16, __nv_bfloat16>(ptrs, bases, b, o, y, dw, K,
+                                               n_tiles, F, n_runs, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Graph Convolutional Network forward on the graph slice.
+"""Graph Convolutional Network on the graph slice: forward and training.
 
 Each layer computes
 
@@ -8,7 +8,11 @@ where the sparse product Â @ (H W) is the pull SpMM (ops/spmm.py) with
 normalized edge weights, and the self-loop diagonal is an elementwise
 rescale.  The dense H @ W is ``torch.matmul`` in full float32.  Parameters
 keep the JAX package's layout, a list of ``{"w", "b"}`` dicts, so
-:func:`params_from_jax` carries them across unchanged.
+:func:`params_from_jax` carries them (and the momentum) across unchanged.
+Training is plain functions on tensors: :func:`gcn_train_step` takes the
+gradient with ``torch.autograd.grad`` through the banded SpMM's backward
+(ops/spmm.py), which is the opposite-direction SpMM; the edge weights are
+constants, so no SDDMM runs.
 """
 
 from __future__ import annotations
@@ -34,14 +38,16 @@ torch.backends.cuda.matmul.allow_tf32 = False
 class GCNNorm:
     """Symmetric-normalized adjacency, split into sparse + diagonal parts.
 
-    ``banded_pull`` holds the normalized edge weights pre-reordered into
-    the banded pull layout (graph/banded.py), once at normalize time
-    instead of per layer; None when the graph has no banded layout.
+    ``banded_pull``/``banded_push`` hold the normalized edge weights
+    pre-reordered into the banded pull and push layouts (graph/banded.py),
+    once at normalize time instead of per layer; the push order feeds the
+    SpMM's backward.  None when the graph has no banded layout.
     """
 
     edge_weights_csc: torch.Tensor  # float32[m_pad]
     self_coeff: torch.Tensor  # float32[n_pad]: 1/deg_hat diagonal
     banded_pull: tuple | None = None
+    banded_push: tuple | None = None
 
 
 def gcn_normalize(g: GraphSlice, band_for_f: int = 128) -> GCNNorm:
@@ -59,10 +65,19 @@ def gcn_normalize(g: GraphSlice, band_for_f: int = 128) -> GCNNorm:
     w = torch.where(g.edge_mask_csc, w, 0.0)
     self_coeff = torch.where(real, 1.0 / deg_hat, 0.0)
 
+    banded_pull = banded_push = None
     lp = get_layout(g, "pull", row_bytes=band_for_f * 4)
-    banded_pull = tuple(lp.permute_to_bands(w)) if lp is not None else None
+    lb = get_layout(g, "push", row_bytes=band_for_f * 4)
+    if lp is not None:
+        banded_pull = tuple(lp.permute_to_bands(w))
+    if lb is not None:
+        # the same per-edge values in CSR order (w is symmetric in src and
+        # dst only on undirected graphs): a gather by the static rank
+        w_csr = w[g.csr_to_csc_rank.long()]
+        banded_push = tuple(lb.permute_to_bands(w_csr))
     return GCNNorm(
-        edge_weights_csc=w, self_coeff=self_coeff, banded_pull=banded_pull
+        edge_weights_csc=w, self_coeff=self_coeff, banded_pull=banded_pull,
+        banded_push=banded_push,
     )
 
 
@@ -122,12 +137,67 @@ def gcn_forward(
             direction="pull",
             weights=norm.edge_weights_csc,
             weights_banded=norm.banded_pull,
+            weights_banded_bwd=norm.banded_push,
             impl=impl,
         ).to(torch.float32)
         h = agg + norm.self_coeff[:, None] * hw + layer["b"]
         if i < len(params) - 1:
             h = torch.relu(h)
     return h
+
+
+def gcn_loss(
+    params: list[dict],
+    g: GraphSlice,
+    norm: GCNNorm,
+    x: torch.Tensor,
+    labels: torch.Tensor,
+    label_mask: torch.Tensor,
+    impl: str = "auto",
+    message_dtype=None,
+) -> torch.Tensor:
+    """Masked softmax cross-entropy over labeled vertices."""
+    logits = gcn_forward(params, g, norm, x, impl=impl,
+                         message_dtype=message_dtype)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
+    nll = torch.where(label_mask, nll, 0.0)
+    return nll.sum() / label_mask.sum().clamp(min=1)
+
+
+def gcn_init_opt(params: list[dict]) -> list[dict]:
+    """SGD-momentum state: zeros like the params."""
+    return [{k: torch.zeros_like(v) for k, v in p.items()} for p in params]
+
+
+def gcn_train_step(
+    params: list[dict],
+    opt_state: list[dict],
+    g: GraphSlice,
+    norm: GCNNorm,
+    x: torch.Tensor,
+    batch,
+    lr: float = 1e-2,
+    impl: str = "auto",
+    message_dtype=None,
+):
+    """One SGD-with-momentum step, ``m = 0.9 m + grad; p = p - lr m``.
+    ``batch = (labels, label_mask)``; ``impl``/``message_dtype`` select
+    the aggregation path as in :func:`gcn_forward`.  Returns
+    ``(new_params, new_opt, loss)``; the inputs are left as they were."""
+    labels, label_mask = batch
+    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+              for p in params]
+    loss = gcn_loss(leaves, g, norm, x, labels, label_mask, impl=impl,
+                    message_dtype=message_dtype)
+    flat = [v for p in leaves for v in p.values()]
+    grads = iter(torch.autograd.grad(loss, flat))
+    new_opt, new_params = [], []
+    for p, m in zip(params, opt_state):
+        mo = {k: 0.9 * m[k] + next(grads) for k in p}
+        new_opt.append(mo)
+        new_params.append({k: p[k] - lr * mo[k] for k in p})
+    return new_params, new_opt, loss.detach()
 
 
 # ----------------------------------------------------------------- oracles

@@ -6,4 +6,4 @@ from mini_tpu_torch.ops.operators import (  # noqa: F401
     compute,
     filter_frontier,
 )
-from mini_tpu_torch.ops.spmm import spmm  # noqa: F401
+from mini_tpu_torch.ops.spmm import sddmm, spmm  # noqa: F401

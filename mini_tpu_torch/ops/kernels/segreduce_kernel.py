@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from mini_tpu_torch.ops.kernels import _build
+from mini_tpu_torch.ops.kernels import _build, refuse_grad
 from mini_tpu_torch.ops.segment import identity_for
 
 OPS = ("min", "max", "sum", "bor")
@@ -102,6 +102,7 @@ def segment_reduce(
         return segment_reduce_plain(offsets, dsts, vals, op, identity)
     if vals.device.type != "cuda":
         raise RuntimeError(f"no segment_reduce kernel for {vals.device}")
+    refuse_grad("segment_reduce", vals)
     _check(offsets, vals, op)
     if offsets.device != vals.device or offsets.dtype != torch.int32:
         raise TypeError("offsets must be int32 on the values' device")

@@ -1,21 +1,28 @@
-"""Banded segment sum (the SpMM core): the CUDA kernel
-``csrc/spmm_banded.cu`` and its plain torch version.
+"""Banded segment sum (the SpMM core) and banded SDDMM (its weight
+gradient): the CUDA kernels of ``csrc/spmm_banded.cu`` and their plain
+torch versions.
 
+``banded_segment_sum``:
 ``out[v] = sum_k sum msgs[k][offs2d[t,k,r] : next]`` for ``v = 128 t + r``,
 where ``next`` is ``offs2d[t,k,r+1]``, or ``bounds[k,t+1]`` for ``r = 127``.
-Inputs are those of the TPU twin
-``mini_tpu.ops.pallas.spmm_banded.banded_segment_sum``: ``bounds``
+
+``banded_sddmm``: ``dw[base_k + j] = <y[v], msgs[k][j]>`` for every slot
+``j`` of band ``k`` in row ``v``'s segment; the flat float32 result has
+one entry per stream slot, and slots at or past ``bounds[k, -1]`` are 0.
+
+Inputs are those of the TPU twins ``banded_segment_sum`` and
+``banded_sddmm`` of ``mini_tpu.ops.pallas.spmm_banded``: ``bounds``
 int32 ``[K, n_tiles+1]``, ``offs2d`` int32 ``[n_tiles, K, 128]`` and K
-streams ``msgs[k]`` of shape ``[mk_pad, F]``, float32 or bfloat16.  The
-result is float32 ``[n_tiles*128, F]``, accumulated in float32.
+streams ``msgs[k]`` of shape ``[mk_pad, F]``, float32 or bfloat16 (and for
+the SDDMM ``y`` ``[n_tiles*128, F]``, float32 or bfloat16).  Both
+accumulate in float32.
 
 ``precision``: ``"split"`` and ``"highest"`` both mean an exact float32
-accumulate of the messages as given; ``"fast"`` first rounds float32
-messages to bfloat16, as the twin's fast path does.
+accumulate of the inputs as given; ``"fast"`` first rounds float32
+messages (and the SDDMM's ``y``) to bfloat16, as the twins' fast paths do.
 
-:func:`banded_segment_sum` dispatches by device: a CPU tensor takes
-:func:`banded_segment_sum_plain`; a CUDA tensor launches the kernel or
-raises.
+Each public wrapper dispatches by device: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from typing import Sequence
 import torch
 
 from mini_tpu_torch.graph.banded import EDGE_CHUNK, ROW_TILE
-from mini_tpu_torch.ops.kernels import _build
+from mini_tpu_torch.ops.kernels import _build, refuse_grad
 
 PRECISIONS = ("split", "highest", "fast")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -38,10 +45,21 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, msg_dtype,
+    #  y_dtype, stream) -> error
+    "banded_sddmm_launch": (
+        [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
     "banded_max_bands": ([], ctypes.c_int),
 }
 
-launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+# kernel launches since the last reset (see chip_smoke.py), per wrapper
+launches = 0  # banded_segment_sum
+sddmm_launches = 0  # banded_sddmm
 
 
 def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
@@ -73,6 +91,55 @@ def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
     return msgs
 
 
+def _prepare_y(offs2d, msgs, y, precision) -> torch.Tensor:
+    """Check the SDDMM's dense side against the layout; apply
+    ``precision``."""
+    shape = (offs2d.shape[0] * ROW_TILE, msgs[0].shape[1])
+    if tuple(y.shape) != shape:
+        raise ValueError(f"y is {tuple(y.shape)}, the layout needs {shape}")
+    if y.dtype not in _DTYPE_CODE:
+        raise TypeError(f"y must be float32 or bfloat16, got {y.dtype}")
+    if precision == "fast" and y.dtype == torch.float32:
+        y = y.to(torch.bfloat16)
+    return y
+
+
+def _segment_ids(bounds, offs2d, k) -> torch.Tensor:
+    """Row of every real slot of band ``k``'s stream (the stream starts at
+    0): the staircase ``offs2d[:, k, :]`` expanded by segment length."""
+    starts = offs2d[:, k, :].reshape(-1).long()
+    ends = torch.cat([starts[1:], bounds[k, -1:].long()])
+    rows = torch.arange(starts.shape[0], device=starts.device)
+    return torch.repeat_interleave(rows, ends - starts)
+
+
+def _device_of(msgs, name: str) -> torch.device:
+    """The streams' device: ``cpu``, or ``cuda`` for a kernel launch."""
+    device = msgs[0].device
+    if device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"no {name} kernel for {device}")
+    return device
+
+
+def _check_cuda(bounds, offs2d, tensors, device) -> None:
+    for a in (bounds, offs2d):
+        if a.device != device or a.dtype != torch.int32:
+            raise TypeError("bounds and offs2d must be int32 on the "
+                            "messages' device")
+    for a in tensors:
+        if a.device != device:
+            raise ValueError(f"all inputs must lie on {device}")
+
+
+def _load(K: int):
+    lib = _build.load("spmm_banded", _SIGNATURES)
+    if K > lib.banded_max_bands():
+        raise ValueError(
+            f"{K} bands exceed the kernel's {lib.banded_max_bands()}"
+        )
+    return lib
+
+
 def banded_segment_sum_plain(
     bounds: torch.Tensor,
     offs2d: torch.Tensor,
@@ -85,16 +152,47 @@ def banded_segment_sum_plain(
     rounded once, so it is a deterministic reference for the kernel."""
     msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
     n_pad = offs2d.shape[0] * ROW_TILE
-    device = msgs[0].device
     out = torch.zeros(n_pad, msgs[0].shape[1], dtype=torch.float64,
-                      device=device)
-    rows = torch.arange(n_pad, device=device)
+                      device=msgs[0].device)
     for k, m in enumerate(msgs):
-        starts = offs2d[:, k, :].reshape(-1).long()
-        ends = torch.cat([starts[1:], bounds[k, -1:].long()])
-        seg = torch.repeat_interleave(rows, ends - starts)  # stream starts at 0
+        seg = _segment_ids(bounds, offs2d, k)
         out.index_add_(0, seg, m[: seg.numel()].double())
     return out.to(torch.float32)
+
+
+def segment_sum_cuda(
+    name: str,
+    bounds: torch.Tensor,
+    offs2d: torch.Tensor,
+    msgs: Sequence[torch.Tensor],
+    precision: str = "split",
+    edge_chunk: int = EDGE_CHUNK,
+) -> torch.Tensor:
+    """Launch the segment-sum kernel on CUDA tensors (see module doc).
+    ``name`` is the calling wrapper's, for errors; the caller counts the
+    launch."""
+    device = msgs[0].device
+    refuse_grad(name, *msgs)
+    msgs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
+                                             precision, edge_chunk)]
+    _check_cuda(bounds, offs2d, msgs, device)
+    bounds = bounds.contiguous()
+    offs2d = offs2d.contiguous()
+    K = len(msgs)
+    lib = _load(K)
+    n_tiles = offs2d.shape[0]
+    F = msgs[0].shape[1]
+    out = torch.empty(n_tiles * ROW_TILE, F, dtype=torch.float32,
+                      device=device)
+    ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
+    rc = lib.banded_segment_sum_launch(
+        ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), out.data_ptr(),
+        n_tiles, F, _DTYPE_CODE[msgs[0].dtype],
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def banded_segment_sum(
@@ -107,40 +205,80 @@ def banded_segment_sum(
     """Sum K segment-sorted message streams into float32 ``[n_tiles*128,
     F]`` rows (see module doc).  On CUDA tensors this launches
     ``csrc/spmm_banded.cu``."""
-    device = msgs[0].device
-    if device.type == "cpu":
+    if _device_of(msgs, "banded_segment_sum").type == "cpu":
         return banded_segment_sum_plain(bounds, offs2d, msgs, precision,
                                         edge_chunk)
-    if device.type != "cuda":
-        raise RuntimeError(f"no banded_segment_sum kernel for {device}")
+    out = segment_sum_cuda("banded_segment_sum", bounds, offs2d, msgs,
+                           precision, edge_chunk)
+    global launches
+    launches += 1
+    return out
+
+
+def banded_sddmm_plain(
+    bounds: torch.Tensor,
+    offs2d: torch.Tensor,
+    msgs: Sequence[torch.Tensor],
+    y: torch.Tensor,
+    precision: str = "split",
+    edge_chunk: int = EDGE_CHUNK,
+) -> torch.Tensor:
+    """Plain torch version: per band, each real slot's row ``y[seg]``
+    (``seg`` from the staircase) dotted with its message in float64 and
+    rounded once; pad slots 0.  A deterministic reference for the
+    kernel."""
+    msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
+    y = _prepare_y(offs2d, msgs, y, precision)
+    out = []
+    for k, m in enumerate(msgs):
+        seg = _segment_ids(bounds, offs2d, k)
+        dw = torch.zeros(m.shape[0], dtype=torch.float64, device=m.device)
+        dw[: seg.numel()] = (y[seg].double()
+                             * m[: seg.numel()].double()).sum(-1)
+        out.append(dw)
+    return torch.cat(out).to(torch.float32)
+
+
+def banded_sddmm(
+    bounds: torch.Tensor,
+    offs2d: torch.Tensor,
+    msgs: Sequence[torch.Tensor],
+    y: torch.Tensor,
+    precision: str = "split",
+    edge_chunk: int = EDGE_CHUNK,
+) -> torch.Tensor:
+    """Per-slot dot products ``<y[dst], msgs[k][j]>`` over the banded
+    layout: the flat float32 ``[sum mk_pad]`` stream, pad slots 0 (see
+    module doc); ``BandedLayout.permute_from_bands`` maps it to edge
+    order.  Float32 inputs give an exact float32 dot product (float32
+    products and sums), tighter than the TPU twin's 3-pass bf16 hi/lo
+    ``split`` (about 1e-5 relative).  On CUDA tensors this launches
+    ``csrc/spmm_banded.cu``'s ``banded_sddmm_launch``."""
+    if _device_of(msgs, "banded_sddmm").type == "cpu":
+        return banded_sddmm_plain(bounds, offs2d, msgs, y, precision,
+                                  edge_chunk)
+    device = msgs[0].device
+    refuse_grad("banded_sddmm", y, *msgs)
     msgs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
                                              precision, edge_chunk)]
-    for a in (bounds, offs2d):
-        if a.device != device or a.dtype != torch.int32:
-            raise TypeError("bounds and offs2d must be int32 on the "
-                            "messages' device")
+    y = _prepare_y(offs2d, msgs, y, precision).contiguous()
+    _check_cuda(bounds, offs2d, [*msgs, y], device)
     bounds = bounds.contiguous()
     offs2d = offs2d.contiguous()
-    lib = _build.load("spmm_banded", _SIGNATURES)
     K = len(msgs)
-    if K > lib.banded_max_bands():
-        raise ValueError(
-            f"{K} bands exceed the kernel's {lib.banded_max_bands()}"
-        )
-    n_tiles = offs2d.shape[0]
-    F = msgs[0].shape[1]
-    out = torch.empty(n_tiles * ROW_TILE, F, dtype=torch.float32,
-                      device=device)
+    lib = _load(K)
+    lens = [int(m.shape[0]) for m in msgs]
+    out = torch.empty(sum(lens), dtype=torch.float32, device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
-    rc = lib.banded_segment_sum_launch(
-        ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), out.data_ptr(),
-        n_tiles, F, _DTYPE_CODE[msgs[0].dtype],
+    rc = lib.banded_sddmm_launch(
+        ptrs, (ctypes.c_longlong * K)(*lens), K, bounds.data_ptr(),
+        offs2d.data_ptr(), y.data_ptr(), out.data_ptr(), offs2d.shape[0],
+        msgs[0].shape[1], _DTYPE_CODE[msgs[0].dtype], _DTYPE_CODE[y.dtype],
         torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(
-            f"banded_segment_sum kernel launch failed: CUDA error {rc}"
-        )
-    global launches
-    launches += 1
+        raise RuntimeError(f"banded_sddmm kernel launch failed: CUDA error "
+                           f"{rc}")
+    global sddmm_launches
+    sddmm_launches += 1
     return out
