@@ -9,8 +9,11 @@ Phases; any failure ends with a traceback and a non-zero exit:
    the CUDA kernels built from ``mini_tpu_torch/csrc/``, one nvcc per
    source, all started together;
 2. each kernel against its plain torch version on the card, at the main
-   path's shapes (RMAT scale 16), with the times of both; and a kernel
-   wrapper given inputs that require grad must raise;
+   path's shapes (RMAT scale 16), with the times of both: the row gather
+   bitwise also at the shapes of the three TPU probes it replaces, the
+   permutation bitwise at 2^21 elements and at the rmat16 composite rank,
+   the SDDMM also with 2 heads; and kernel wrappers given inputs that
+   require grad must raise;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
    weighted)`` and from 3 more reached sources: labels bitwise equal to
    ``bfs_cpu``, preds the host's min-id parent; time and MTEPS;
@@ -19,13 +22,24 @@ Phases; any failure ends with a traceback and a non-zero exit:
    oracle ``gcn_forward_cpu``;
 5. GCN training at the same width on the RMAT graph (``bench.py``'s
    ``gcn_train_f32``/``gcn_train_bf16`` rows): the first step's loss and
-   gradients against the same step on ``impl="xla"``, 4 segment-sum and
-   0 SDDMM launches per step, the step time; then ER-2048 trained on a
-   teacher's labels until the loss falls below 0.7 of its first value;
+   gradients against the same step on ``impl="xla"``, 4 segment-sum, 0
+   SDDMM and 4 K row-gather launches per step (K bands), the step time;
+   then ER-2048 trained on a teacher's labels until the loss falls below
+   0.7 of its first value;
 6. the SpMM weight gradient (the SDDMM kernel), ``sddmm`` in both edge
    orders and ``spmm(impl="pallas_onehot")`` at RMAT scale 16, F=128,
    against ``impl="xla"``;
-7. one JSON line of the kernels (launch counts of phases 3-6, each phase
+7. the GAT of ``bench.py``'s gat rows, [128, 32, 32] with 2 heads, on the
+   RMAT graph: ``attn="auto"`` must take the banded layer; its float32
+   forward against the float64 oracle ``gat_forward_cpu``, bf16 within
+   3e-2, the fused forward; the first train step's loss and gradients,
+   the banded native backward against the fused path; per-step launches
+   of all six kernels; step times and the peak device memory of a step
+   (also at RMAT scale 18); ER-2048 trained until its loss falls;
+8. GraphSAGE [128, 128, 32]: ER-2048 against ``sage_forward_cpu``, the
+   RMAT graph's banded forward and gradients against ``impl="xla"``, the
+   train step time;
+9. one JSON line of the kernels (launch counts of phases 3-8, each phase
    counted from 0, errors of phase 2, times), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -89,7 +103,7 @@ def phase_build():
     card = smi.stdout.strip().splitlines()[0]
     log(card)
     t0 = time.perf_counter()
-    names = ("segreduce", "spmm_banded")
+    names = ("segreduce", "spmm_banded", "gather_rows", "permute")
     with ThreadPoolExecutor(len(names)) as pool:
         paths = list(pool.map(_build.build, names))
     for name, path in zip(names, paths):
@@ -175,20 +189,14 @@ def phase_kernels(g, device):
     stats["banded_segment_sum"] = dict(max_abs_err=err2, ms=t2[0],
                                        plain_ms=t2[1])
 
-    # a kernel's output carries no gradient: asked for one, it must raise
-    # (the streams of the last case above, made to require grad)
-    rg = [m.detach().float().requires_grad_() for m in msgs]
-    try:
-        k2.banded_segment_sum(dev["bounds"], dev["offs2d"], rg)
-    except RuntimeError as exc:
-        assert "cannot carry gradients" in str(exc), exc
-    else:
-        raise AssertionError("banded_segment_sum returned a result without "
-                             "gradients for inputs that require grad")
-    log("# banded_segment_sum refuses inputs that require grad")
+    # the streams of the last case above, made to require grad
+    refuses_grad("banded_segment_sum", lambda *rg: k2.banded_segment_sum(
+        dev["bounds"], dev["offs2d"], rg), *msgs)
 
     stats["banded_sddmm"] = check_sddmm(layout, dev, rng, device)
     stats["segment_sum"] = check_segment_sum(g, rng, device)
+    stats["gather_rows"] = check_gather(layout, dev, rng, device)
+    stats["apply_fixed_perm"] = check_permute(g, rng, device)
     log("# phase 2: kernels match their plain versions")
     return stats
 
@@ -236,7 +244,175 @@ def check_sddmm(layout, dev, rng, device):
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if dtype == torch.float32:
             t3 = (ms, plain_ms)
+    # GAT's weight cotangent: 2 heads, each over its 64 columns, one launch
+    H = 2
+    msgs = [torch.index_select(x[k * layout.band_rows:
+                                 (k + 1) * layout.band_rows], 0, dev["ids"][k])
+            for k in range(layout.K)]
+    args = (dev["bounds"], dev["offs2d"], msgs, y)
+    got = k2.banded_sddmm(*args, heads=H)
+    want = k2.banded_sddmm_plain(*args, heads=H)
+    mag = k2.banded_sddmm_plain(dev["bounds"], dev["offs2d"],
+                                [m.abs() for m in msgs], y.abs(), heads=H)
+    torch.cuda.synchronize(device)
+    assert got.shape == (layout.total_padded, H)
+    diff = (got - want).abs()
+    ratio = float((diff / mag.clamp(min=1e-30))[real].max())
+    assert ratio <= DOT_TOL, ("heads", ratio)
+    assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
+    err3 = max(err3, float(diff.max()))
+    ms = cuda_ms(lambda: k2.banded_sddmm(*args, heads=H), device)
+    plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args, heads=H), device)
+    log(f"# banded_sddmm F={F_HID} H={H} float32 K={layout.K}: err "
+        f"{float(diff.max()):.3g} (max per-slot ratio {ratio:.3g}, bound "
+        f"{DOT_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
     return dict(max_abs_err=err3, ms=t3[0], plain_ms=t3[1])
+
+
+def refuses_grad(name, fn, *tensors) -> None:
+    """A kernel's output carries no gradient: asked for one, the wrapper
+    must raise."""
+    import torch
+
+    rg = [t.detach().float().requires_grad_() for t in tensors]
+    try:
+        fn(*rg)
+    except RuntimeError as exc:
+        assert "cannot carry gradients" in str(exc), exc
+    else:
+        raise AssertionError(f"{name} returned a result without gradients "
+                             "for inputs that require grad")
+    torch.cuda.synchronize()
+    log(f"# {name} refuses inputs that require grad")
+
+
+def check_gather(layout, dev, rng, device):
+    """``gather_rows`` bitwise against ``index_select`` at the shapes of
+    the TPU probes it replaces (rows 5-7 of PERF.md's kernel table) and at
+    the rmat16 band gathers of the F=128 layout (the path shape)."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
+
+    def case(label, W, M, dtype=torch.float32, F=128):
+        table = torch.from_numpy(rng.randn(W, F).astype(np.float32)).to(
+            device=device, dtype=dtype)
+        idx = torch.from_numpy(rng.randint(0, W, M).astype(np.int32)).to(
+            device)
+        got = kg.gather_rows(table, idx)
+        torch.cuda.synchronize(device)
+        assert torch.equal(got, kg.gather_rows_plain(table, idx)), label
+        ms = cuda_ms(lambda: kg.gather_rows(table, idx), device)
+        plain_ms = cuda_ms(lambda: kg.gather_rows_plain(table, idx), device)
+        log(f"# gather_rows {label} table [{W},{F}] {str(dtype)[6:]} "
+            f"idx [{M}]: bitwise, kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        case("probe_dma_gather", 65536, 128 * 1024, dtype)
+    case("probe_dma_bisect", 1024, 2048)
+    for W, C in ((512, 512), (2048, 2048), (8192, 8192), (2048, 512)):
+        case("probe_hbm_and_gather", W, C)
+    case("odd width F=40", 4096, 100000, F=40)
+
+    t = None
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.randn(layout.n_pad, F_HID).astype(
+            np.float32)).to(device=device, dtype=dtype)
+        bands = [x[k * layout.band_rows: (k + 1) * layout.band_rows]
+                 for k in range(layout.K)]
+
+        def run(fn):
+            return [fn(b, i) for b, i in zip(bands, dev["ids"])]
+
+        for a, b in zip(run(kg.gather_rows), run(kg.gather_rows_plain)):
+            assert torch.equal(a, b)
+        ms = cuda_ms(lambda: run(kg.gather_rows), device)
+        plain_ms = cuda_ms(lambda: run(kg.gather_rows_plain), device)
+        log(f"# gather_rows rmat{SCALE} pull bands F={F_HID} "
+            f"{str(dtype)[6:]} K={layout.K} ({layout.total_padded} rows): "
+            f"bitwise, kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        if dtype == torch.float32:
+            t = (ms, plain_ms)
+    refuses_grad("gather_rows", lambda tb: kg.gather_rows(tb, dev["ids"][0]),
+                 bands[0])
+    return dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1])
+
+
+def check_permute(g, rng, device):
+    """The permutation kernel bitwise against its plain version: 2^21
+    float32 elements by a random permutation (the butterfly probe's
+    size), and the rmat16 pull-to-push composite rank of the GAT
+    backward with its 2H=4 payloads (the path shape), both directions."""
+    import torch
+
+    from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
+    from mini_tpu_torch.ops.kernels import permute_kernel as kp
+
+    m = 1 << 21
+    rank = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(device)
+    pay = [torch.from_numpy(rng.randn(m).astype(np.float32)).to(device)]
+    cases = [("2^21 random", rank, pay)]
+    comp = get_pull_to_push_rank(
+        g, get_layout(g, "pull", row_bytes=F_HID * 4),
+        get_layout(g, "push", row_bytes=F_HID * 4))
+    n = comp.shape[0]
+    cases.append((f"rmat{SCALE} composite", comp, [
+        torch.from_numpy(rng.randn(n).astype(np.float32)).to(device)
+        for _ in range(4)]))
+    t = None
+    for label, r, p in cases:
+        for inverse in (False, True):
+            got = kp.permute(r, p, inverse=inverse)
+            want = kp.permute_plain(r, p, inverse=inverse)
+            torch.cuda.synchronize(device)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), label
+        ms = cuda_ms(lambda: kp.permute(r, p), device)
+        plain_ms = cuda_ms(lambda: kp.permute_plain(r, p), device)
+        log(f"# apply_fixed_perm {label} [{r.shape[0]}] x {len(p)} float32 "
+            f"payloads: bitwise both ways, kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms")
+        t = (ms, plain_ms)
+    check_permute_dtypes(g, comp, p[0], rng, device)
+    refuses_grad("apply_fixed_perm", lambda v: kp.permute(comp, [v]),
+                 p[0])
+    return dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1])
+
+
+def check_permute_dtypes(g, comp, base, rng, device):
+    """Payloads of 1, 2, 4 and 8 bytes move together in one launch,
+    bitwise against the plain version both ways; and the banded SpMM with
+    bfloat16, float16 or float64 edge weights (which go through the band
+    permutes as they are) equals it with the same weights in float32."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import permute_kernel as kp
+    from mini_tpu_torch.ops.spmm import spmm
+
+    pays = [base > 0, base.to(torch.bfloat16), base.half(), base,
+            base.double(),
+            torch.arange(base.shape[0], device=device, dtype=torch.int64)
+            << 33]
+    for inverse in (False, True):
+        got = kp.permute(comp, pays, inverse=inverse)
+        want = kp.permute_plain(comp, pays, inverse=inverse)
+        torch.cuda.synchronize(device)
+        assert all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(got, want))
+    x = torch.from_numpy(rng.rand(g.n_pad, F_HID).astype(np.float32)).to(
+        device)
+    w = torch.from_numpy(rng.rand(g.m_pad).astype(np.float32)).to(device)
+    ref = spmm(g, x, weights=w, impl="banded")
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        wd = w.to(dtype)
+        got = spmm(g, x, weights=wd, impl="banded")
+        want = spmm(g, x, weights=wd.float(), impl="banded")
+        torch.cuda.synchronize(device)
+        assert torch.equal(got, want), dtype
+        assert float((got - ref).abs().max()) <= 1e-2 * float(
+            ref.abs().max()), dtype
+    log("# apply_fixed_perm bool/bf16/f16/f32/f64/i64 payloads in one "
+        "launch: bitwise both ways; banded SpMM with bf16/f16/f64 weights "
+        "equals float32 weights")
 
 
 def check_segment_sum(g, rng, device):
@@ -311,22 +487,27 @@ def phase_bfs(hg, g, device):
 def phase_gcn(name, hg, g, device):
     import torch
 
+    from mini_tpu_torch.graph.banded import get_layout
     from mini_tpu_torch.models.gcn import (
         gcn_forward, gcn_forward_cpu, gcn_init, gcn_normalize,
     )
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
     from mini_tpu_torch.utils.timing import time_fn
 
     norm = gcn_normalize(g)
+    K = get_layout(g, "pull", row_bytes=F_HID * 4).K
     params = gcn_init(torch.Generator().manual_seed(0),
                       [F_IN, F_HID, F_OUT], device=device)
     x_np = np.random.RandomState(0).rand(g.n_pad, F_IN).astype(np.float32)
     x = torch.from_numpy(x_np).to(device)
 
     def forward(mdt):
-        before = k2.launches
+        before = (k2.launches, kg.launches)
         out = gcn_forward(params, g, norm, x, message_dtype=mdt)
-        assert k2.launches - before == 2, k2.launches - before
+        # per layer: K band gathers and one banded sum
+        counts = (k2.launches - before[0], kg.launches - before[1])
+        assert counts == (2, 2 * K), counts
         return out
 
     out32 = forward(None)
@@ -360,10 +541,12 @@ def phase_train(g, device):
     from mini_tpu_torch.models.gcn import (
         gcn_forward, gcn_init, gcn_init_opt, gcn_normalize, gcn_train_step,
     )
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
     from mini_tpu_torch.utils.timing import time_fn
 
     norm = gcn_normalize(g)
+    K = len(norm.banded_pull)
     x = torch.from_numpy(np.random.RandomState(0).rand(g.n_pad, F_IN)
                          .astype(np.float32)).to(device)
     labels = torch.from_numpy(np.random.RandomState(1).randint(
@@ -374,12 +557,14 @@ def phase_train(g, device):
     opt = gcn_init_opt(params)
 
     def step(impl, mdt=None):
-        before = (k2.launches, k2.sddmm_launches)
+        before = (k2.launches, k2.sddmm_launches, kg.launches)
         out = gcn_train_step(params, opt, g, norm, x, (labels, mask), 1e-2,
                              impl=impl, message_dtype=mdt)
-        if impl == "banded":  # 2 forward sums, 2 dx sums, no SDDMM
-            counts = (k2.launches - before[0], k2.sddmm_launches - before[1])
-            assert counts == (4, 0), counts
+        if impl == "banded":  # 2 forward sums, 2 dx sums, no SDDMM; K
+            # band gathers before each sum
+            counts = (k2.launches - before[0], k2.sddmm_launches - before[1],
+                      kg.launches - before[2])
+            assert counts == (4, 0, 4 * K), counts
         return out
 
     # from zero momentum the new momentum is the gradient itself
@@ -486,6 +671,275 @@ def phase_grad(g, device):
         f"(bound {bound:.3g})")
 
 
+GAT_DIMS, GAT_HEADS = [F_IN, 32, 32], 2  # bench.py:186,225-227
+MEMORY_SCALE = 18  # the GAT step's peak memory, where bench.py stops
+BUILD_LIMIT_S = 60.0  # skip that scale if its host build takes longer
+
+
+def launches_now() -> dict:
+    """Every kernel's launch count, by the names of KERNELS."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"mini_tpu_torch.ops.kernels.{m}"), attr)
+        for name, (m, attr, _, _) in KERNELS.items()}
+
+
+def launches_since(before: dict) -> dict:
+    now = launches_now()
+    return {k: now[k] - before[k] for k in now}
+
+
+def grads_close(got, ref, tol, floor=1e-7) -> float:
+    """Per parameter, max |got - ref| <= tol * max|ref| + floor (a float32
+    sum of terms that cancel to about 0 keeps an absolute error); returns
+    the largest error over max|ref|."""
+    worst = 0.0
+    for gp, rp in zip(got, ref):
+        for k in rp:
+            err = float((gp[k] - rp[k]).abs().max())
+            scale = float(rp[k].abs().max())
+            assert err <= tol * scale + floor, (k, err, scale)
+            worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def phase_gat(hg, g, device):
+    """bench.py's gat rows (gat_f32, gat_bf16, gat_train_*) on the RMAT
+    graph, the peak memory of a train step, and ER-2048 learning."""
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, erdos_renyi, rmat
+    from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
+    from mini_tpu_torch.models.gat import (
+        gat_forward, gat_forward_cpu, gat_init, gat_init_opt, gat_train_step,
+    )
+    from mini_tpu_torch.utils.timing import time_fn
+
+    F = GAT_HEADS * 64  # two heads of 32, each padded to 64 columns
+    K = get_layout(g, "pull", row_bytes=F * 4).K
+    K_b = get_layout(g, "push", row_bytes=F * 4).K
+    params = gat_init(torch.Generator().manual_seed(0), GAT_DIMS,
+                      heads=GAT_HEADS, device=device)
+    x_np = np.random.RandomState(0).rand(g.n_pad, F_IN).astype(np.float32)
+    x = torch.from_numpy(x_np).to(device)
+
+    with torch.no_grad():
+        before = launches_now()
+        out32 = gat_forward(params, g, x)
+        counts = launches_since(before)
+    # the banded layer: per layer K band gathers and one banded sum, and no
+    # permutation (the fused path permutes its weights into bands)
+    want = dict(segment_reduce=0, banded_segment_sum=2, banded_sddmm=0,
+                segment_sum=0, gather_rows=2 * K, apply_fixed_perm=0)
+    assert counts == want, counts
+    ref = gat_forward_cpu(
+        [{k: v.cpu().numpy() for k, v in p.items()} for p in params], hg,
+        x_np)
+    got32 = out32.cpu().numpy()[: hg.n]
+    assert np.isfinite(got32).all() and got32.shape == (hg.n, GAT_DIMS[-1])
+    np.testing.assert_allclose(got32, ref, rtol=1e-3, atol=1e-4)
+    with torch.no_grad():
+        out16 = gat_forward(params, g, x, message_dtype=torch.bfloat16)
+        fused = gat_forward(params, g, x, attn="fused")
+    np.testing.assert_allclose(out16.cpu().numpy(), out32.cpu().numpy(),
+                               rtol=BF16_TOL, atol=BF16_TOL)
+    np.testing.assert_allclose(fused.cpu().numpy(), out32.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    log(f"# gat rmat{SCALE} {GAT_DIMS} H={GAT_HEADS} forward: auto took the "
+        f"banded layer (K={K}); f32 allclose to gat_forward_cpu (rtol 1e-3, "
+        f"atol 1e-4), bf16 within {BF16_TOL}, fused allclose (rtol 1e-4)")
+
+    labels = torch.from_numpy(np.random.RandomState(1).randint(
+        0, N_CLASSES, g.n_pad)).to(device)
+    mask = torch.arange(g.n_pad, device=device) < g.n
+    opt = gat_init_opt(params)
+
+    def step(attn, mdt=None):
+        return gat_train_step(params, opt, g, x, (labels, mask), 1e-2,
+                              message_dtype=mdt, attn=attn)
+
+    before = launches_now()
+    _, grads, loss = step("auto")
+    counts = launches_since(before)
+    # per layer: forward K gathers + 1 sum; backward K gathers + 1 SDDMM
+    # (weight cotangent), H (K + K_b) segment sums (ds_dst, ds_src), 1
+    # permutation (pull to push bands), K_b gathers + 1 sum (g_h)
+    H = GAT_HEADS
+    want = dict(segment_reduce=2 * H * (K + K_b), banded_segment_sum=4,
+                banded_sddmm=2, segment_sum=0, gather_rows=2 * (2 * K + K_b),
+                apply_fixed_perm=2)
+    assert counts == want, counts
+    log(f"# gat train step launches (banded, native backward): "
+        f"{json.dumps(counts)}")
+    # from zero momentum the new momentum is the gradient itself
+    _, grads_f, loss_f = step("fused")
+    np.testing.assert_allclose(float(loss), float(loss_f), rtol=1e-5)
+    err = grads_close(grads, grads_f, GRAD_TOL)
+    _, grads16, loss16 = step("auto", torch.bfloat16)
+    np.testing.assert_allclose(float(loss16), float(loss), rtol=BF16_TOL)
+    # bf16 messages: about 3 digits of the step's largest gradient (a
+    # small parameter's own gradient can lose more)
+    scale = max(float(p[k].abs().max()) for p in grads_f for k in p)
+    err16 = max(float((a[k] - b[k]).abs().max())
+                for a, b in zip(grads16, grads_f) for k in b) / scale
+    assert err16 <= BF16_TOL, err16
+    log(f"# gat train step: loss {float(loss):.6f} (fused "
+        f"{float(loss_f):.6f}, bf16 {float(loss16):.6f}); banded grads vs "
+        f"fused max err/max|fused| {err:.3g} per parameter (bound "
+        f"{GRAD_TOL}); bf16 grads max err/largest fused grad {err16:.3g} "
+        f"(bound {BF16_TOL})")
+
+    for name, attn, mdt in (("gat_train_f32", "auto", None),
+                            ("gat_train_bf16", "auto", torch.bfloat16),
+                            ("gat_train_fused_f32", "fused", None)):
+        with torch.no_grad():
+            fwd = time_fn(lambda: gat_forward(params, g, x, message_dtype=mdt,
+                                              attn=attn),
+                          warmup=1, repeat=5, device=device)
+        t = time_fn(lambda: step(attn, mdt), warmup=1, repeat=5,
+                    device=device)
+        log(f"# {name} rmat{SCALE}: step {t.min_s * 1e3:.3f} ms, forward "
+            f"{fwd.min_s * 1e3:.3f} ms (min of 5); step/forward "
+            f"{t.min_s / fwd.min_s:.2f}")
+
+    def peak_memory(gg, xx, ll, mm, mdt):
+        pp = gat_init(torch.Generator().manual_seed(0), GAT_DIMS,
+                      heads=GAT_HEADS, device=device)
+        oo = gat_init_opt(pp)
+        gat_train_step(pp, oo, gg, xx, (ll, mm), 1e-2, message_dtype=mdt)
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        gat_train_step(pp, oo, gg, xx, (ll, mm), 1e-2, message_dtype=mdt)
+        torch.cuda.synchronize(device)
+        return torch.cuda.max_memory_allocated(device) / 2**30, base / 2**30
+
+    for mdt in (None, torch.bfloat16):
+        peak, base = peak_memory(g, x, labels, mask, mdt)
+        log(f"# gat train step rmat{SCALE} {'f32' if mdt is None else 'bf16'}"
+            f": peak device memory {peak:.3f} GiB (max_memory_allocated; "
+            f"{base:.3f} GiB allocated before the step)")
+    t0 = time.perf_counter()
+    hg_big = rmat(MEMORY_SCALE, edge_factor=16, seed=0, undirected=True,
+                  weighted=True)
+    g_big = GraphSlice.from_host(hg_big, device=device)
+    lp = get_layout(g_big, "pull", row_bytes=F * 4)
+    lb = get_layout(g_big, "push", row_bytes=F * 4)
+    get_pull_to_push_rank(g_big, lp, lb)
+    build_s = time.perf_counter() - t0
+    log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (host build with "
+        f"layouts {build_s:.2f} s, K={lp.K})")
+    if build_s <= BUILD_LIMIT_S:
+        x_big = torch.rand(g_big.n_pad, F_IN, device=device,
+                           generator=torch.Generator(device).manual_seed(0))
+        l_big = torch.randint(0, N_CLASSES, (g_big.n_pad,), device=device)
+        m_big = torch.arange(g_big.n_pad, device=device) < g_big.n
+        for mdt in (None, torch.bfloat16):
+            peak, base = peak_memory(g_big, x_big, l_big, m_big, mdt)
+            log(f"# gat train step rmat{MEMORY_SCALE} "
+                f"{'f32' if mdt is None else 'bf16'}: peak device memory "
+                f"{peak:.3f} GiB ({base:.3f} GiB allocated before the step)")
+        del x_big, l_big, m_big
+    else:
+        log(f"# rmat{MEMORY_SCALE} host build over {BUILD_LIMIT_S} s: its "
+            f"peak memory is not measured")
+    del g_big, hg_big
+    torch.cuda.empty_cache()
+
+    # tests/test_models.py:196-214: a few steps lower the loss
+    g_er = GraphSlice.from_host(
+        erdos_renyi(2048, 16384, seed=0, undirected=True), device=device)
+    x_er = torch.from_numpy(np.random.RandomState(10).rand(
+        g_er.n_pad, F_IN).astype(np.float32)).to(device)
+    lab = torch.from_numpy(np.random.RandomState(10).randint(
+        0, N_CLASSES, g_er.n_pad)).to(device)
+    msk = torch.arange(g_er.n_pad, device=device) < g_er.n
+    p = gat_init(torch.Generator().manual_seed(10), GAT_DIMS,
+                 heads=GAT_HEADS, device=device)
+    o = gat_init_opt(p)
+    losses = []
+    for _ in range(5):
+        p, o, loss = gat_train_step(p, o, g_er, x_er, (lab, msk), 0.1)
+        losses.append(float(loss))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    log(f"# phase 7: gat train er2048 lr 0.1: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} in 5 steps")
+
+
+def phase_sage(g, device):
+    """GraphSAGE [128, 128, 32]: ER-2048 against the dense oracle, the RMAT
+    graph's banded forward and gradients against impl="xla", the step."""
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, erdos_renyi
+    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.models.sage import (
+        sage_forward, sage_forward_cpu, sage_init, sage_init_opt, sage_loss,
+        sage_train_step,
+    )
+    from mini_tpu_torch.utils.timing import time_fn
+
+    dims = [F_IN, F_HID, F_OUT]
+    params = sage_init(torch.Generator().manual_seed(0), dims, device=device)
+    params_np = [{k: v.cpu().numpy() for k, v in p.items()} for p in params]
+    hg_er = erdos_renyi(2048, 16384, seed=0, undirected=True)
+    g_er = GraphSlice.from_host(hg_er, device=device)
+    x_np = np.random.RandomState(0).rand(g_er.n_pad, F_IN).astype(np.float32)
+    with torch.no_grad():
+        out = sage_forward(params, g_er, torch.from_numpy(x_np).to(device))
+    np.testing.assert_allclose(out.cpu().numpy()[: hg_er.n],
+                               sage_forward_cpu(params_np, hg_er, x_np),
+                               rtol=1e-4, atol=1e-5)
+    log("# sage er2048: banded forward allclose to sage_forward_cpu (rtol "
+        "1e-4, atol 1e-5)")
+
+    x = torch.from_numpy(np.random.RandomState(0).rand(g.n_pad, F_IN)
+                         .astype(np.float32)).to(device)
+    labels = torch.from_numpy(np.random.RandomState(1).randint(
+        0, N_CLASSES, g.n_pad)).to(device)
+    mask = torch.arange(g.n_pad, device=device) < g.n
+    res = {}
+    for impl in ("banded", "xla"):
+        leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                  for p in params]
+        out = sage_forward(leaves, g, x, impl=impl)
+        loss = sage_loss(leaves, g, x, labels, mask, impl=impl)
+        grads = torch.autograd.grad(loss, [v for p in leaves
+                                           for v in p.values()])
+        res[impl] = (out.detach(), [dict(zip(p, grads[2 * i: 2 * i + 2]))
+                                    for i, p in enumerate(leaves)])
+    np.testing.assert_allclose(res["banded"][0].cpu().numpy(),
+                               res["xla"][0].cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    err = grads_close(res["banded"][1], res["xla"][1], GRAD_TOL)
+    log(f"# sage rmat{SCALE} banded vs xla: forward allclose (rtol 1e-4), "
+        f"grads max err/max|xla| {err:.3g} (bound {GRAD_TOL})")
+
+    K = get_layout(g, "pull", row_bytes=F_HID * 4).K
+    K_b = get_layout(g, "push", row_bytes=F_HID * 4).K
+    opt = sage_init_opt(params)
+
+    def step(impl):
+        return sage_train_step(params, opt, g, x, (labels, mask), 1e-2,
+                               impl=impl)
+
+    before = launches_now()
+    step("banded")
+    counts = launches_since(before)
+    # per layer: 2 permutations (the unit weights into pull and push
+    # bands), K gathers + 1 sum; the backward: dx of layer 2 only (x needs
+    # no gradient), K_b gathers + 1 sum; no SDDMM (constant weights)
+    want = dict(segment_reduce=0, banded_segment_sum=3, banded_sddmm=0,
+                segment_sum=0, gather_rows=2 * K + K_b, apply_fixed_perm=4)
+    assert counts == want, counts
+    for impl in ("banded", "xla"):
+        t = time_fn(lambda: step(impl), warmup=1, repeat=5, device=device)
+        log(f"# sage_train rmat{SCALE} {impl} f32: step "
+            f"{t.min_s * 1e3:.3f} ms (min of 5)")
+    log(f"# phase 8: sage train step launches {json.dumps(counts)}")
+
+
 # kernel -> (wrapper module, its launch counter, source, the TPU kernel)
 KERNELS = {
     "segment_reduce": ("segreduce_kernel", "launches",
@@ -500,6 +954,14 @@ KERNELS = {
     "segment_sum": ("spmm_kernel", "launches",
                     "mini_tpu_torch/csrc/spmm_banded.cu",
                     "mini_tpu/ops/pallas/spmm_kernel.py:113"),
+    "gather_rows": ("gather_rows", "launches",
+                    "mini_tpu_torch/csrc/gather_rows.cu",
+                    "scratch/probe_dma_gather.py:66,123; "
+                    "scratch/probe_dma_bisect.py:100; "
+                    "scratch/probe_hbm_and_gather.py:55"),
+    "apply_fixed_perm": ("permute_kernel", "launches",
+                         "mini_tpu_torch/csrc/permute.cu",
+                         "scratch/probe_butterfly.py:74"),
 }
 
 
@@ -553,6 +1015,8 @@ def main() -> None:
         drive("gcn_forward", gcn_forward_path),
         drive("gcn_train", phase_train, g, device),
         drive("spmm_grad_sddmm", phase_grad, g, device),
+        drive("gat", phase_gat, hg, g, device),
+        drive("sage", phase_sage, g, device),
     ]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():

@@ -48,6 +48,13 @@
 // a hub row spreads over as many warps as it has runs of 32 slots.
 // Bound by bytes like the sum: each message row is read once (y rows come
 // from cache), 2 operations per 4 bytes of float32 message.
+//
+// With H heads (GAT's weight cotangent) a slot gets H dot products,
+// dw[base_k + j, h] over columns [h F/H, (h+1) F/H): the warp walks its 32
+// slots once per head, over that head's columns only, so each message byte
+// is still read once and no head is padded or copied (the TPU twin pads
+// each head to 128 lanes and runs H passes).  H = 1 is the form above,
+// with the same order of operations.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +130,7 @@ banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
                     const int* __restrict__ bounds,
                     const int* __restrict__ offs2d,
                     const TY* __restrict__ y, float* __restrict__ out, int K,
-                    int n_tiles, int F, long long n_runs) {
+                    int n_tiles, int F, int H, long long n_runs) {
   const int lane = threadIdx.x % kWarp;
   const long long run =
       static_cast<long long>(blockIdx.x) * kSddmmWarps + threadIdx.x / kWarp;
@@ -134,16 +141,20 @@ banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
   const int j0 = static_cast<int>(s0 - base.b[k]);
   const int* bk = bounds + static_cast<size_t>(k) * (n_tiles + 1);
   const int end = bk[n_tiles];  // the band's real slots are [0, end)
-  float acc = 0.0f;  // lane s accumulates slot j0 + s
+  const int j1 = min(j0 + kSlotsPerWarp, end);
+  // the segment (tile t0, row r0) holding slot j0; its end is > j0
+  int t0 = 0, r0 = 0;
   if (j0 < end) {
-    const int j1 = min(j0 + kSlotsPerWarp, end);
-    // the segment (tile t0, row r0) holding slot j0; its end is > j0
-    const int t0 = last_le(bk, n_tiles, j0);
-    const int r0 =
-        last_le(offs2d + (static_cast<size_t>(t0) * K + k) * kRowTile,
-                kRowTile, j0);
-    const TM* m = static_cast<const TM*>(msgs.p[k]);
-    for (int c0 = 0; c0 < F; c0 += kColBlock) {
+    t0 = last_le(bk, n_tiles, j0);
+    r0 = last_le(offs2d + (static_cast<size_t>(t0) * K + k) * kRowTile,
+                 kRowTile, j0);
+  }
+  const TM* m = static_cast<const TM*>(msgs.p[k]);
+  const int d = F / H;  // head h dots columns [h d, (h + 1) d)
+  for (int h = 0; h < H; ++h) {
+    const int c_end = (h + 1) * d;
+    float acc = 0.0f;  // lane s accumulates slot j0 + s
+    for (int c0 = h * d; c0 < c_end && j0 < end; c0 += kColBlock) {
       int t = t0, r = r0, row = -1;
       float yv[kColsPerLane];
       auto seg_end = [&](int tt, int rr) {
@@ -168,7 +179,7 @@ banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
 #pragma unroll
           for (int i = 0; i < kColsPerLane; ++i) {
             const int c = c0 + lane + i * kWarp;
-            yv[i] = c < F ? to_f32(yr[c]) : 0.0f;
+            yv[i] = c < c_end ? to_f32(yr[c]) : 0.0f;
           }
         }
         const TM* mj = m + static_cast<size_t>(j) * F;
@@ -176,7 +187,7 @@ banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
 #pragma unroll
         for (int i = 0; i < kColsPerLane; ++i) {
           const int c = c0 + lane + i * kWarp;
-          if (c < F) p += yv[i] * to_f32(mj[c]);
+          if (c < c_end) p += yv[i] * to_f32(mj[c]);
         }
 #pragma unroll
         for (int o = kWarp / 2; o > 0; o /= 2)
@@ -184,20 +195,20 @@ banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
         if (lane == j - j0) acc += p;
       }
     }
+    out[(s0 + lane) * H + h] = acc;
   }
-  out[s0 + lane] = acc;
 }
 
 template <typename TM, typename TY>
 void launch_sddmm(const StreamPtrs& ptrs, const StreamBases& bases,
                   const int* b, const int* o, const void* y, float* out,
-                  int K, int n_tiles, int F, long long n_runs,
+                  int K, int n_tiles, int F, int H, long long n_runs,
                   cudaStream_t s) {
   const long long blocks = (n_runs + kSddmmWarps - 1) / kSddmmWarps;
   banded_sddmm_kernel<TM, TY>
       <<<static_cast<unsigned>(blocks), kWarp * kSddmmWarps, 0, s>>>(
           ptrs, bases, b, o, static_cast<const TY*>(y), out, K, n_tiles, F,
-          n_runs);
+          H, n_runs);
 }
 
 }  // namespace
@@ -236,19 +247,20 @@ extern "C" int banded_segment_sum_launch(const void* const* msg_ptrs, int K,
 }
 
 // msg_ptrs, lens: host arrays of K device pointers and K stream lengths
-// (each a multiple of 32).  out: float32 [sum(lens)].  msg_dtype, y_dtype:
-// DT_FLOAT32 or DT_BFLOAT16.  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for bad arguments.
+// (each a multiple of 32).  H: heads, dividing F.  out: float32
+// [sum(lens), H].  msg_dtype, y_dtype: DT_FLOAT32 or DT_BFLOAT16.  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for bad arguments.
 extern "C" int banded_sddmm_launch(const void* const* msg_ptrs,
                                    const long long* lens, int K,
                                    const void* bounds, const void* offs2d,
                                    const void* y, void* out, int n_tiles,
-                                   int F, int msg_dtype, int y_dtype,
+                                   int F, int H, int msg_dtype, int y_dtype,
                                    void* stream) {
   const auto dtype_ok = [](int d) {
     return d == DT_FLOAT32 || d == DT_BFLOAT16;
   };
-  if (K < 1 || K > kMaxBands || n_tiles < 1 || F < 1 ||
+  if (K < 1 || K > kMaxBands || n_tiles < 1 || F < 1 || H < 1 || F % H ||
       !dtype_ok(msg_dtype) || !dtype_ok(y_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   StreamPtrs ptrs = {};
@@ -268,16 +280,16 @@ extern "C" int banded_sddmm_launch(const void* const* msg_ptrs,
   const int code = msg_dtype * 2 + y_dtype;
   if (code == DT_FLOAT32 * 2 + DT_FLOAT32) {
     launch_sddmm<float, float>(ptrs, bases, b, o, y, dw, K, n_tiles, F,
-                               n_runs, s);
+                               H, n_runs, s);
   } else if (code == DT_FLOAT32 * 2 + DT_BFLOAT16) {
     launch_sddmm<float, __nv_bfloat16>(ptrs, bases, b, o, y, dw, K, n_tiles,
-                                       F, n_runs, s);
+                                       F, H, n_runs, s);
   } else if (code == DT_BFLOAT16 * 2 + DT_FLOAT32) {
     launch_sddmm<__nv_bfloat16, float>(ptrs, bases, b, o, y, dw, K, n_tiles,
-                                       F, n_runs, s);
+                                       F, H, n_runs, s);
   } else {
     launch_sddmm<__nv_bfloat16, __nv_bfloat16>(ptrs, bases, b, o, y, dw, K,
-                                               n_tiles, F, n_runs, s);
+                                               n_tiles, F, H, n_runs, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -81,7 +81,10 @@ class BandedLayout:
         """The layout's arrays as tensors on ``device`` (cached).
 
         ``offs2d`` is transposed to the kernel-facing ``[n_tiles, K,
-        ROW_TILE]``: one tile's offsets for every band are contiguous."""
+        ROW_TILE]``: one tile's offsets for every band are contiguous.
+        ``seg[k]`` is the segment (row) of every slot of band ``k``, pad
+        slots included (they take the last row): the result of JAX's
+        ``expand_to_edges`` over ``offsets[k]``, as gather indices."""
         device = torch.device(device)
         key = str(device)
         if key not in self._dev:
@@ -89,6 +92,11 @@ class BandedLayout:
             inv[self.banded_rank] = np.arange(
                 self.banded_rank.shape[0], dtype=self.banded_rank.dtype
             )
+            seg = [
+                (np.searchsorted(o[:-1], np.arange(len(i)), side="right")
+                 - 1).astype(np.int32)
+                for o, i in zip(self.offsets, self.ids)
+            ]
 
             def t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -100,29 +108,58 @@ class BandedLayout:
                 offs2d=t(self.offs2d.transpose(1, 0, 2)),
                 banded_rank=t(self.banded_rank),
                 inv_rank=t(inv),
+                offsets=[t(o) for o in self.offsets],
+                valid=[t(v) for v in self.valid],
+                seg=[t(s) for s in seg],
             )
         return self._dev[key]
 
+    def _split_bands(self, flat: torch.Tensor) -> list:
+        """The flat banded stream (or its leading ``total_padded`` rows) as
+        the K per-band tensors."""
+        return list(torch.split(flat[: self.total_padded],
+                                [len(i) for i in self.ids]))
+
+    def _to_flat(self, cols) -> tuple:
+        """Per-edge columns in the base order -> the flat banded stream,
+        all columns in one permutation launch (pad slots 0)."""
+        from mini_tpu_torch.ops.permute import apply_fixed_perm
+
+        d = self.dev(cols[0].device)
+        padded = [
+            torch.cat([c, c.new_zeros(self.total_padded - c.shape[0])])
+            for c in cols
+        ]
+        out = apply_fixed_perm(d["banded_rank"], *padded)
+        return out if isinstance(out, tuple) else (out,)
+
     def permute_to_bands(self, edge_vals: torch.Tensor) -> list:
         """Reorder per-edge values (in this layout's base order: CSC for
-        pull, CSR for push) into the banded order: one gather by the
-        inverse rank.  Returns the K per-band tensors (pad slots 0)."""
-        d = self.dev(edge_vals.device)
-        padded = torch.zeros(
-            (self.total_padded,) + tuple(edge_vals.shape[1:]),
-            dtype=edge_vals.dtype, device=edge_vals.device,
-        )
-        padded[: edge_vals.shape[0]] = edge_vals
-        flat = padded[d["inv_rank"]]
-        return list(torch.split(flat, [len(i) for i in self.ids]))
+        pull, CSR for push) into the banded order: one fixed-permutation
+        apply by the banded rank (differentiable for float values).
+        Returns the K per-band tensors (pad slots 0); ``[m, H]`` values
+        give ``[mk, H]`` bands."""
+        if edge_vals.ndim == 2:
+            return self.permute_to_bands_multi(
+                *[edge_vals[:, h] for h in range(edge_vals.shape[1])])
+        return self._split_bands(self._to_flat([edge_vals])[0])
+
+    def permute_to_bands_multi(self, *cols: torch.Tensor) -> list:
+        """H per-edge columns through ONE permutation launch; returns the K
+        per-band ``[mk, H]`` stacks (JAX ``permute_to_bands_multi``)."""
+        flats = [self._split_bands(f) for f in self._to_flat(cols)]
+        return [torch.stack([f[k] for f in flats], dim=1)
+                for k in range(self.K)]
 
     def permute_from_bands(self, band_vals) -> torch.Tensor:
         """Inverse of :meth:`permute_to_bands`: per-band tensors (or the
         flat banded stream) back to the base edge order, length m_pad."""
+        from mini_tpu_torch.ops.permute import apply_fixed_perm
+
         if not isinstance(band_vals, torch.Tensor):
             band_vals = torch.cat(list(band_vals))
         d = self.dev(band_vals.device)
-        return band_vals[d["banded_rank"][: self.m_pad]]
+        return apply_fixed_perm(d["inv_rank"], band_vals)[: self.m_pad]
 
 
 def build_banded_layout(
@@ -219,6 +256,8 @@ MAX_LAYOUTS = 16
 
 _HOST_CACHE: OrderedDict = OrderedDict()  # fingerprint -> host arrays
 _LAYOUT_CACHE: OrderedDict = OrderedDict()  # (fp, dir, rows, chunk) -> layout
+# (fp, pull rows, pull chunk, push rows, push chunk, device) -> int32 rank
+_COMPOSITE_CACHE: OrderedDict = OrderedDict()
 
 
 def _lru_touch(cache: OrderedDict, key, limit: int):
@@ -233,10 +272,51 @@ def register_host_graph(fingerprint: str, host_arrays: dict) -> None:
     edge masks)."""
     _HOST_CACHE[fingerprint] = host_arrays
     _lru_touch(_HOST_CACHE, fingerprint, MAX_HOST_GRAPHS)
-    # layouts of evicted graphs are keyed by fingerprint prefix — drop them
+    # layouts and composite ranks of evicted graphs are keyed by
+    # fingerprint prefix: drop them (JAX keeps its composite ranks)
     live = set(_HOST_CACHE)
-    for k in [k for k in _LAYOUT_CACHE if k[0] not in live]:
-        del _LAYOUT_CACHE[k]
+    for cache in (_LAYOUT_CACHE, _COMPOSITE_CACHE):
+        for k in [k for k in cache if k[0] not in live]:
+            del cache[k]
+
+
+def get_pull_to_push_rank(g, pull: BandedLayout, push: BandedLayout):
+    """Composite static rank: flat pull-band slot -> flat push-band slot of
+    the same edge, composed on the host once per layout pair (JAX
+    ``get_pull_to_push_rank``): pull slot -> CSC position -> CSR position
+    (the host ``csr_to_csc_rank``) -> push slot.  Pad slots map one to one
+    onto push pad slots, so zero-padded pull streams come out as
+    zero-padded push streams.
+
+    Returns an int32 tensor on ``g``'s device of length ``max(total_pull,
+    total_push)``: apply it to inputs padded to that length and cut the
+    result to ``push.total_padded``.  None when the host arrays of this
+    graph are unknown."""
+    fp = getattr(g, "fingerprint", None)
+    if fp is None or fp not in _HOST_CACHE:
+        return None
+    h = _HOST_CACHE[fp]
+    device = str(g.device)
+    key = (fp, pull.band_rows, pull.edge_chunk, push.band_rows,
+           push.edge_chunk, device)
+    if key not in _COMPOSITE_CACHE:
+        m_pad = pull.m_pad
+        assert push.m_pad == m_pad
+        csr_to_csc = np.asarray(h["csr_to_csc_rank"], np.int64)
+        n_total = max(pull.total_padded, push.total_padded)
+        comp = np.full(n_total, -1, np.int64)
+        pull_rank = np.asarray(pull.banded_rank, np.int64)
+        push_rank = np.asarray(push.banded_rank, np.int64)
+        # CSR edge i lives at pull slot pull_rank[csr_to_csc[i]] and at
+        # push slot push_rank[i]
+        comp[pull_rank[:m_pad][csr_to_csc]] = push_rank[:m_pad]
+        used = np.zeros(n_total, bool)
+        used[push_rank[:m_pad]] = True
+        comp[comp < 0] = np.nonzero(~used)[0]  # the n_total - m_pad pads
+        _COMPOSITE_CACHE[key] = torch.from_numpy(
+            comp.astype(np.int32)).to(device)
+    _lru_touch(_COMPOSITE_CACHE, key, MAX_LAYOUTS)
+    return _COMPOSITE_CACHE[key]
 
 
 def get_layout(

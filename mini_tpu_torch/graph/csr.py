@@ -249,6 +249,7 @@ class GraphSlice:
                 for k in (
                     "row_offsets", "csr_dsts", "csr_weights",
                     "col_offsets", "csc_srcs", "csc_weights", "edge_mask",
+                    "csr_to_csc_rank",  # composes the pull-to-push rank
                 )
             },
         )

@@ -9,3 +9,20 @@ from mini_tpu_torch.models.gcn import (  # noqa: F401
     gcn_train_step,
     params_from_jax,
 )
+from mini_tpu_torch.models.gat import (  # noqa: F401
+    gat_init,
+    gat_forward,
+    gat_forward_cpu,
+    gat_init_opt,
+    gat_loss,
+    gat_train_step,
+    segment_softmax_by_dst,
+)
+from mini_tpu_torch.models.sage import (  # noqa: F401
+    sage_init,
+    sage_forward,
+    sage_forward_cpu,
+    sage_init_opt,
+    sage_loss,
+    sage_train_step,
+)

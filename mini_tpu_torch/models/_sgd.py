@@ -1,0 +1,36 @@
+"""The models' shared optimizer: SGD with momentum over a list of
+parameter dicts, the contract of the JAX package's ``*_train_step``s
+(``m = 0.9 m + grad; p = p - lr m``)."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def init_opt(params: list[dict]) -> list[dict]:
+    """SGD-momentum state: zeros like the params."""
+    return [{k: torch.zeros_like(v) for k, v in p.items()} for p in params]
+
+
+def sgd_momentum_step(
+    params: list[dict],
+    opt_state: list[dict],
+    loss_fn: Callable[[list[dict]], torch.Tensor],
+    lr: float,
+):
+    """One step: the gradient of ``loss_fn`` at ``params`` by
+    ``torch.autograd.grad``, then the momentum update.  Returns
+    ``(new_params, new_opt, loss)``; the inputs are left as they were."""
+    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
+              for p in params]
+    loss = loss_fn(leaves)
+    flat = [v for p in leaves for v in p.values()]
+    grads = iter(torch.autograd.grad(loss, flat))
+    new_opt, new_params = [], []
+    for p, m in zip(params, opt_state):
+        mo = {k: 0.9 * m[k] + next(grads) for k in p}
+        new_opt.append(mo)
+        new_params.append({k: p[k] - lr * mo[k] for k in p})
+    return new_params, new_opt, loss.detach()

@@ -26,6 +26,7 @@ import torch
 
 from mini_tpu_torch.graph.banded import get_layout
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
+from mini_tpu_torch.models._sgd import init_opt, sgd_momentum_step
 from mini_tpu_torch.ops.spmm import spmm
 
 # H @ W in full float32, as the JAX reference computes it: no TF32 on the
@@ -167,7 +168,7 @@ def gcn_loss(
 
 def gcn_init_opt(params: list[dict]) -> list[dict]:
     """SGD-momentum state: zeros like the params."""
-    return [{k: torch.zeros_like(v) for k, v in p.items()} for p in params]
+    return init_opt(params)
 
 
 def gcn_train_step(
@@ -186,18 +187,12 @@ def gcn_train_step(
     the aggregation path as in :func:`gcn_forward`.  Returns
     ``(new_params, new_opt, loss)``; the inputs are left as they were."""
     labels, label_mask = batch
-    leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
-              for p in params]
-    loss = gcn_loss(leaves, g, norm, x, labels, label_mask, impl=impl,
-                    message_dtype=message_dtype)
-    flat = [v for p in leaves for v in p.values()]
-    grads = iter(torch.autograd.grad(loss, flat))
-    new_opt, new_params = [], []
-    for p, m in zip(params, opt_state):
-        mo = {k: 0.9 * m[k] + next(grads) for k in p}
-        new_opt.append(mo)
-        new_params.append({k: p[k] - lr * mo[k] for k in p})
-    return new_params, new_opt, loss.detach()
+    return sgd_momentum_step(
+        params, opt_state,
+        lambda p: gcn_loss(p, g, norm, x, labels, label_mask, impl=impl,
+                           message_dtype=message_dtype),
+        lr,
+    )
 
 
 # ----------------------------------------------------------------- oracles

@@ -44,6 +44,12 @@ def dst_vals_to_csr(g: GraphSlice, vertex_vals: torch.Tensor, *more):
 
 
 def _reduce(offsets, seg_ids, edge_vals, op, identity):
+    if edge_vals.ndim == 2:  # [m, H]: one launch per column
+        return torch.stack([
+            _reduce(offsets, seg_ids, edge_vals[:, j].contiguous(), op,
+                    identity)
+            for j in range(edge_vals.shape[1])
+        ], dim=-1)
     if op == "or":
         return segment_reduce(
             offsets, seg_ids, edge_vals.to(torch.int32), "max"
@@ -58,17 +64,42 @@ def _reduce(offsets, seg_ids, edge_vals, op, identity):
     return out
 
 
+class _SegmentSum(torch.autograd.Function):
+    """The float segment sum with its gradient: the transpose of a sum
+    per segment is the expansion of the cotangent onto the segment's
+    edges, a gather by the segment id (JAX ``engine.py``'s ``rsum``)."""
+
+    @staticmethod
+    def forward(ctx, offsets, seg_ids, edge_vals):
+        ctx.save_for_backward(seg_ids)
+        return _reduce(offsets, seg_ids, edge_vals, "sum", None)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (seg_ids,) = ctx.saved_tensors
+        return None, None, torch.index_select(ct, 0, seg_ids)
+
+
+def _reduce_op(offsets, seg_ids, edge_vals, op, identity):
+    if (op == "sum" and identity is None
+            and edge_vals.dtype.is_floating_point):
+        return _SegmentSum.apply(offsets, seg_ids, edge_vals)
+    return _reduce(offsets, seg_ids, edge_vals, op, identity)
+
+
 def reduce_csc_by_dst(
     g: GraphSlice,
     edge_vals: torch.Tensor,
     op: str,
     identity=None,
 ) -> torch.Tensor:
-    """Segmented reduce of CSC-ordered per-edge values into [n_pad] dst
-    slots.  ``op``: ``or`` (bool result), ``min``, ``max``, ``sum``;
-    ``identity`` (min/max/float sum) replaces the default value of empty
-    segments."""
-    return _reduce(g.col_offsets, g.csc_dsts, edge_vals, op, identity)
+    """Segmented reduce of CSC-ordered per-edge values (``[m_pad]``, or
+    ``[m_pad, H]`` reduced column by column) into ``[n_pad]`` (``[n_pad,
+    H]``) dst slots.  ``op``: ``or`` (bool result), ``min``, ``max``,
+    ``sum``; ``identity`` (min/max/float sum) replaces the default value
+    of empty segments.  The float ``sum`` with no identity is
+    differentiable; the other reduces take no gradient."""
+    return _reduce_op(g.col_offsets, g.csc_dsts, edge_vals, op, identity)
 
 
 def reduce_csr_by_src(
@@ -79,4 +110,4 @@ def reduce_csr_by_src(
 ) -> torch.Tensor:
     """Segmented reduce of CSR-ordered per-edge values into [n_pad] src
     slots (see :func:`reduce_csc_by_dst`)."""
-    return _reduce(g.row_offsets, g.csr_srcs, edge_vals, op, identity)
+    return _reduce_op(g.row_offsets, g.csr_srcs, edge_vals, op, identity)

@@ -9,6 +9,8 @@ where ``next`` is ``offs2d[t,k,r+1]``, or ``bounds[k,t+1]`` for ``r = 127``.
 ``banded_sddmm``: ``dw[base_k + j] = <y[v], msgs[k][j]>`` for every slot
 ``j`` of band ``k`` in row ``v``'s segment; the flat float32 result has
 one entry per stream slot, and slots at or past ``bounds[k, -1]`` are 0.
+With ``heads=H`` it is ``[total, H]``, head ``h`` the dot over columns
+``[h F/H, (h+1) F/H)`` (GAT's per-head weight cotangent).
 
 Inputs are those of the TPU twins ``banded_segment_sum`` and
 ``banded_sddmm`` of ``mini_tpu.ops.pallas.spmm_banded``: ``bounds``
@@ -45,13 +47,13 @@ _SIGNATURES = {
          ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, msg_dtype,
-    #  y_dtype, stream) -> error
+    # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, H,
+    #  msg_dtype, y_dtype, stream) -> error
     "banded_sddmm_launch": (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
     "banded_max_bands": ([], ctypes.c_int),
@@ -91,12 +93,14 @@ def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
     return msgs
 
 
-def _prepare_y(offs2d, msgs, y, precision) -> torch.Tensor:
-    """Check the SDDMM's dense side against the layout; apply
-    ``precision``."""
+def _prepare_y(offs2d, msgs, y, precision, heads=1) -> torch.Tensor:
+    """Check the SDDMM's dense side against the layout and the head count;
+    apply ``precision``."""
     shape = (offs2d.shape[0] * ROW_TILE, msgs[0].shape[1])
     if tuple(y.shape) != shape:
         raise ValueError(f"y is {tuple(y.shape)}, the layout needs {shape}")
+    if heads < 1 or shape[1] % heads:
+        raise ValueError(f"{heads} heads do not divide F={shape[1]}")
     if y.dtype not in _DTYPE_CODE:
         raise TypeError(f"y must be float32 or bfloat16, got {y.dtype}")
     if precision == "fast" and y.dtype == torch.float32:
@@ -222,21 +226,26 @@ def banded_sddmm_plain(
     y: torch.Tensor,
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
+    heads: int = 1,
 ) -> torch.Tensor:
     """Plain torch version: per band, each real slot's row ``y[seg]``
-    (``seg`` from the staircase) dotted with its message in float64 and
-    rounded once; pad slots 0.  A deterministic reference for the
-    kernel."""
+    (``seg`` from the staircase) dotted with its message, per head, in
+    float64 and rounded once; pad slots 0.  A deterministic reference for
+    the kernel."""
     msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
-    y = _prepare_y(offs2d, msgs, y, precision)
+    y = _prepare_y(offs2d, msgs, y, precision, heads)
     out = []
     for k, m in enumerate(msgs):
         seg = _segment_ids(bounds, offs2d, k)
-        dw = torch.zeros(m.shape[0], dtype=torch.float64, device=m.device)
-        dw[: seg.numel()] = (y[seg].double()
-                             * m[: seg.numel()].double()).sum(-1)
+        dw = torch.zeros(m.shape[0], heads, dtype=torch.float64,
+                         device=m.device)
+        prod = y[seg].double() * m[: seg.numel()].double()
+        # explicit widths: a band may hold no real slot
+        dw[: seg.numel()] = prod.reshape(seg.numel(), heads,
+                                         m.shape[1] // heads).sum(-1)
         out.append(dw)
-    return torch.cat(out).to(torch.float32)
+    out = torch.cat(out).to(torch.float32)
+    return out[:, 0] if heads == 1 else out
 
 
 def banded_sddmm(
@@ -246,39 +255,41 @@ def banded_sddmm(
     y: torch.Tensor,
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
+    heads: int = 1,
 ) -> torch.Tensor:
     """Per-slot dot products ``<y[dst], msgs[k][j]>`` over the banded
-    layout: the flat float32 ``[sum mk_pad]`` stream, pad slots 0 (see
-    module doc); ``BandedLayout.permute_from_bands`` maps it to edge
-    order.  Float32 inputs give an exact float32 dot product (float32
-    products and sums), tighter than the TPU twin's 3-pass bf16 hi/lo
-    ``split`` (about 1e-5 relative).  On CUDA tensors this launches
-    ``csrc/spmm_banded.cu``'s ``banded_sddmm_launch``."""
+    layout: the flat float32 ``[sum mk_pad]`` stream (``[sum mk_pad, H]``
+    with ``heads=H``), pad slots 0 (see module doc);
+    ``BandedLayout.permute_from_bands`` maps it to edge order.  Float32
+    inputs give an exact float32 dot product (float32 products and sums),
+    tighter than the TPU twin's 3-pass bf16 hi/lo ``split`` (about 1e-5
+    relative).  On CUDA tensors this launches ``csrc/spmm_banded.cu``'s
+    ``banded_sddmm_launch``, one launch for all heads."""
     if _device_of(msgs, "banded_sddmm").type == "cpu":
         return banded_sddmm_plain(bounds, offs2d, msgs, y, precision,
-                                  edge_chunk)
+                                  edge_chunk, heads)
     device = msgs[0].device
     refuse_grad("banded_sddmm", y, *msgs)
     msgs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
                                              precision, edge_chunk)]
-    y = _prepare_y(offs2d, msgs, y, precision).contiguous()
+    y = _prepare_y(offs2d, msgs, y, precision, heads).contiguous()
     _check_cuda(bounds, offs2d, [*msgs, y], device)
     bounds = bounds.contiguous()
     offs2d = offs2d.contiguous()
     K = len(msgs)
     lib = _load(K)
     lens = [int(m.shape[0]) for m in msgs]
-    out = torch.empty(sum(lens), dtype=torch.float32, device=device)
+    out = torch.empty(sum(lens), heads, dtype=torch.float32, device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
     rc = lib.banded_sddmm_launch(
         ptrs, (ctypes.c_longlong * K)(*lens), K, bounds.data_ptr(),
         offs2d.data_ptr(), y.data_ptr(), out.data_ptr(), offs2d.shape[0],
-        msgs[0].shape[1], _DTYPE_CODE[msgs[0].dtype], _DTYPE_CODE[y.dtype],
-        torch.cuda.current_stream(device).cuda_stream,
+        msgs[0].shape[1], heads, _DTYPE_CODE[msgs[0].dtype],
+        _DTYPE_CODE[y.dtype], torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"banded_sddmm kernel launch failed: CUDA error "
                            f"{rc}")
     global sddmm_launches
     sddmm_launches += 1
-    return out
+    return out[:, 0] if heads == 1 else out

@@ -8,13 +8,17 @@ case), the aggregation of GNN message passing and its edge scoring.
 SpMM implementations:
 
 * ``banded`` (the default for a CUDA ``x``; ``pallas`` is an alias): K
-  band gathers of the weighted messages (graph/banded.py) folded per
-  destination by the ``banded_segment_sum`` kernel
-  (ops/kernels/spmm_banded.py).  Differentiable in ``x`` (the backward is
-  the opposite-direction banded SpMM) and in the edge weights (the
-  ``banded_sddmm`` kernel: ``dw[e] = <go[dst e], x[src e]>``), through one
-  ``torch.autograd.Function``.  On CUDA a graph with no banded layout
-  raises; nothing falls back.
+  band gathers (the ``gather_rows`` kernel, ops/kernels/gather_rows.py) of
+  the weighted messages (graph/banded.py) folded per destination by the
+  ``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py).
+  Differentiable in ``x`` (the backward is the opposite-direction banded
+  SpMM) and in the edge weights (the ``banded_sddmm`` kernel: ``dw[e] =
+  <go[dst e], x[src e]>``), through one ``torch.autograd.Function``.  On
+  CUDA a graph with no banded layout raises; nothing falls back.
+  ``heads > 1`` is GAT's blockwise form: x is the head concat ``[n_pad,
+  H d]``, the weights ``[m_pad, H]``, and head h's columns are scaled by
+  its own weight column, all heads in one set of gathers and one kernel
+  launch.
 * ``pallas_onehot``: one whole-graph gather, then the contiguous
   ``segment_sum`` kernel (ops/kernels/spmm_kernel.py), the JAX package's
   round-1 route, kept for comparison.  Not differentiable on CUDA.
@@ -30,6 +34,10 @@ import torch
 
 from mini_tpu_torch.graph.banded import BandedLayout, get_layout
 from mini_tpu_torch.graph.csr import GraphSlice
+from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
+from mini_tpu_torch.ops.kernels.segreduce_kernel import (
+    segment_reduce as segment_reduce_kernel,
+)
 from mini_tpu_torch.ops.kernels.spmm_banded import (
     banded_sddmm,
     banded_segment_sum,
@@ -63,11 +71,24 @@ def spmm(
     ``precision`` (banded only): ``split``/``highest``/``auto`` accumulate
     float32 messages exactly in float32; ``fast`` casts float32 ``x`` to
     bfloat16 before the gather.  The banded and ``pallas_onehot`` results
-    are float32.  ``heads > 1`` (the GAT blockwise form) is not ported
-    yet.
+    are float32.
+
+    ``heads > 1`` is the blockwise multi-head form (GAT): x is the head
+    concat ``[n_pad, H d]``, the weights ``[m_pad, H]`` (or K pre-banded
+    ``[mk, H]`` tensors), and
+
+        out[v, h d:(h+1) d] = sum_e w[e, h] * x[src e, h d:(h+1) d]
     """
-    if heads != 1:
-        raise NotImplementedError("spmm with heads > 1 comes with GAT")
+    if heads > 1:
+        if weights_banded is None and (weights is None
+                                       or weights.ndim != 2):
+            raise ValueError("heads > 1 needs [m_pad, H] per-head weights")
+        if x.ndim != 2 or x.shape[-1] % heads:
+            raise ValueError(f"x {tuple(x.shape)} is not {heads} head "
+                             "blocks")
+        if impl == "pallas_onehot":
+            raise ValueError("pallas_onehot takes scalar weights; use "
+                             "impl='banded' or 'xla' for heads > 1")
     if x.ndim == 1:
         return spmm(
             g, x[:, None], direction=direction, weights=weights, op=op,
@@ -84,7 +105,7 @@ def spmm(
         raise ValueError(f"impl={impl!r} sums; op={op!r} needs 'xla'")
     if impl == "banded":
         return _spmm_banded(g, x, direction, weights, weights_banded,
-                            weights_banded_bwd, precision)
+                            weights_banded_bwd, precision, heads)
     if impl not in ("xla", "pallas_onehot"):
         raise ValueError(f"unknown impl {impl!r}")
 
@@ -101,32 +122,45 @@ def spmm(
         # weight override (the twin leaves that to the caller)
         return spmm_pallas(offsets, gather_ids, torch.where(mask, w, 0), x,
                            seg_ids=seg)
-    msgs = torch.index_select(x, 0, gather_ids) * w[:, None].to(x.dtype)
+    msgs = _weigh(torch.index_select(x, 0, gather_ids), w, heads)
     return segment_reduce(msgs, seg, g.n_pad, op, mask=mask[:, None])
 
 
 # -- banded path -------------------------------------------------------------
 
 
+def _weigh(xg, w, heads):
+    """Messages times their weights: ``[m]`` scalars, or ``[m, H]``
+    columns each scaling its head's block of ``xg``'s columns."""
+    if heads == 1:
+        return xg * w[:, None].to(xg.dtype)
+    m, F = xg.shape
+    return (xg.reshape(m, heads, F // heads)
+            * w[:, :, None].to(xg.dtype)).reshape(m, F)
+
+
+def _band(x, layout: BandedLayout, k):
+    """Band ``k``'s rows of ``x``."""
+    lo = k * layout.band_rows
+    return x[lo: min(lo + layout.band_rows, layout.n_pad)]
+
+
 def _gather_bands(x, layout: BandedLayout, precision):
-    """The K unweighted band gathers ``x[band k][ids[k]]``, in bfloat16
-    under ``fast``."""
+    """The K unweighted band gathers ``x[band k][ids[k]]`` (the
+    ``gather_rows`` kernel), in bfloat16 under ``fast``."""
     dev = layout.dev(x.device)
     if precision == "fast" and x.dtype == torch.float32:
         x = x.to(torch.bfloat16)
-    out = []
-    for k in range(layout.K):
-        lo = k * layout.band_rows
-        hi = min(lo + layout.band_rows, layout.n_pad)
-        out.append(torch.index_select(x[lo:hi], 0, dev["ids"][k]))
-    return out
+    return [gather_rows(_band(x, layout, k), dev["ids"][k])
+            for k in range(layout.K)]
 
 
-def _apply_banded(x, layout: BandedLayout, w_list, precision):
+def _apply_banded(x, layout: BandedLayout, w_list, precision, heads=1):
     """K band gathers of the weighted messages, then the banded kernel.
-    ``w_list``: K per-band weight tensors in the layout's order."""
+    ``w_list``: K per-band weight tensors in the layout's order (``[mk]``,
+    or ``[mk, H]`` per-head columns)."""
     bands = _gather_bands(x, layout, precision)
-    msgs = [xg * w[:, None].to(xg.dtype) for xg, w in zip(bands, w_list)]
+    msgs = [_weigh(xg, w, heads) for xg, w in zip(bands, w_list)]
     dev = layout.dev(x.device)
     return banded_segment_sum(
         dev["bounds"], dev["offs2d"], msgs, precision=precision,
@@ -134,17 +168,45 @@ def _apply_banded(x, layout: BandedLayout, w_list, precision):
     )
 
 
-def _weight_cotangent(x, go, layout: BandedLayout, precision):
+def _weight_cotangent(x, go, layout: BandedLayout, precision, heads=1):
     """``dw[slot] = <go[dst], x_band[ids[slot]]>`` for every slot of the
-    layout, by the banded SDDMM kernel; the K per-band tensors."""
+    layout (per head over its column block with ``heads > 1``), by one
+    launch of the banded SDDMM kernel; the K per-band ``[mk]`` (or
+    ``[mk, H]``) tensors."""
     msgs = _gather_bands(x, layout, precision)
     dev = layout.dev(x.device)
     flat = banded_sddmm(
         dev["bounds"], dev["offs2d"], msgs, go,
         precision="split" if precision == "fast" else precision,
-        edge_chunk=layout.edge_chunk,
+        edge_chunk=layout.edge_chunk, heads=heads,
     )
     return torch.split(flat, [int(m.shape[0]) for m in msgs])
+
+
+def banded_heads_segment_sum(
+    layout: BandedLayout,
+    bands: Sequence[torch.Tensor],
+) -> torch.Tensor:
+    """Per-segment float32 sums of banded per-slot columns (K ``[mk, H]``
+    tensors in this layout's order) -> ``[n_pad, H]``.
+
+    Each band's stream is segment-contiguous (``layout.offsets[k]``), so
+    this is the contiguous-segment kernel (ops/kernels/segreduce_kernel.py)
+    over each band's offsets, one launch per band and column, summed
+    across bands; JAX runs a segmented scan per band.  Pad slots lie past
+    the last segment end and never count."""
+    dev = layout.dev(bands[0].device)
+    out = None
+    for k, b in enumerate(bands):
+        mk = layout.lens[k]  # the band's segments end here
+        cols = b[:mk].t().contiguous()
+        seg = dev["seg"][k][:mk]
+        r = torch.stack([
+            segment_reduce_kernel(dev["offsets"][k], seg, c, "sum")
+            for c in cols
+        ], dim=-1)
+        out = r if out is None else out + r
+    return out
 
 
 class _BandedSpmm(torch.autograd.Function):
@@ -156,14 +218,15 @@ class _BandedSpmm(torch.autograd.Function):
     *w_b``."""
 
     @staticmethod
-    def forward(ctx, x, layout_f, layout_b, precision, K, *ws):
+    def forward(ctx, x, layout_f, layout_b, precision, heads, K, *ws):
         ctx.layouts = (layout_f, layout_b)
         ctx.precision = precision
+        ctx.heads = heads
         ctx.K = K
         ctx.w_dtype = ws[0].dtype
         # x, not its band gathers: those are the size of the edge stream
         ctx.save_for_backward(x, *ws[K:])
-        return _apply_banded(x, layout_f, ws[:K], precision)
+        return _apply_banded(x, layout_f, ws[:K], precision, heads)
 
     @staticmethod
     def backward(ctx, go):
@@ -171,7 +234,7 @@ class _BandedSpmm(torch.autograd.Function):
         layout_f, layout_b = ctx.layouts
         K = ctx.K
         need_x = ctx.needs_input_grad[0]
-        need_w = any(ctx.needs_input_grad[5:5 + K])
+        need_w = any(ctx.needs_input_grad[6:6 + K])
         gx = None
         if need_x:
             if layout_b is None:
@@ -179,12 +242,14 @@ class _BandedSpmm(torch.autograd.Function):
                     "backward banded SpMM needs the opposite-direction "
                     "layout: pass weights_banded_bwd with weights_banded"
                 )
-            gx = _apply_banded(go, layout_b, w_b, ctx.precision).to(x.dtype)
+            gx = _apply_banded(go, layout_b, w_b, ctx.precision,
+                               ctx.heads).to(x.dtype)
         dw_f = [None] * K
         if need_w:  # GCN's weights are constants: no SDDMM there
-            dw_f = [d.to(ctx.w_dtype) for d in
-                    _weight_cotangent(x, go, layout_f, ctx.precision)]
-        return (gx, None, None, None, None, *dw_f, *[None] * len(w_b))
+            dw_f = [d.to(ctx.w_dtype) for d in _weight_cotangent(
+                x, go, layout_f, ctx.precision, ctx.heads)]
+        return (gx, None, None, None, None, None, *dw_f,
+                *[None] * len(w_b))
 
 
 def _other_order(g: GraphSlice, direction: str, w: torch.Tensor):
@@ -198,7 +263,7 @@ def _other_order(g: GraphSlice, direction: str, w: torch.Tensor):
 
 
 def _spmm_banded(g, x, direction, weights, weights_banded,
-                 weights_banded_bwd, precision):
+                 weights_banded_bwd, precision, heads=1):
     # band height follows the lane-padded float32 row, whatever x's dtype
     # and width: one layout (and the weights pre-banded on it) serves the
     # float32 and bf16 paths and every F up to the next multiple of 128
@@ -230,8 +295,10 @@ def _spmm_banded(g, x, direction, weights, weights_banded,
         else:  # the backward order of pre-banded weights is unknown
             w_b, layout_b = [], None
     elif weights is not None:
+        # [m] or [m, H] weights: permute_to_bands takes H columns in one
+        # permutation launch
         mask = g.edge_mask_csc if direction == "pull" else g.edge_mask
-        w = torch.where(mask, weights, 0)
+        w = torch.where(mask if heads == 1 else mask[:, None], weights, 0)
         w_f = layout.permute_to_bands(w)
         w_b = layout_b.permute_to_bands(_other_order(g, direction, w))
     else:
@@ -239,8 +306,8 @@ def _spmm_banded(g, x, direction, weights, weights_banded,
         w_b = layout_b.dev(x.device)["weights"]
     if precision == "auto":
         precision = "split"
-    return _BandedSpmm.apply(x, layout, layout_b, precision, len(w_f), *w_f,
-                             *w_b)
+    return _BandedSpmm.apply(x, layout, layout_b, precision, heads, len(w_f),
+                             *w_f, *w_b)
 
 
 # -- SDDMM -------------------------------------------------------------------

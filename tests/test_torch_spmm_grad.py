@@ -18,6 +18,7 @@ import mini_tpu.graph as jg
 from mini_tpu.graph import banded as jbanded
 from mini_tpu.ops.pallas.spmm_kernel import spmm_pallas as jspmm_pallas
 from mini_tpu.ops.spmm import _spmm_banded as j_spmm_banded
+from mini_tpu.ops.spmm import _weight_cotangent as j_weight_cotangent
 from mini_tpu.ops.spmm import sddmm as jsddmm
 from mini_tpu.ops.spmm import spmm as jspmm
 import mini_tpu_torch.graph as tg
@@ -153,7 +154,7 @@ def test_prebanded_weights_backward():
     (want,) = torch.autograd.grad(
         torch.sin(tspmm(gt, x, weights=w, impl="xla")).sum(), (x,))
     close(got.numpy(), want.numpy())
-    with pytest.raises(NotImplementedError, match="heads"):
+    with pytest.raises(ValueError, match="heads"):  # scalar weights
         tspmm(gt, x, weights=w, heads=2)
 
 
@@ -209,3 +210,161 @@ def test_pallas_onehot_matches_jax(dtype):
     # impl="pallas" is the JAX package's alias of banded
     assert torch.equal(tspmm(gt, x, impl="pallas"),
                        tspmm(gt, x, impl="banded"))
+
+
+# -- heads > 1: GAT's blockwise form -----------------------------------------
+
+HEAD_CASES = [("undirected", 1, "pull", 2), ("directed", 3, "pull", 2),
+              ("directed", 3, "push", 4)]
+
+
+def heads_inputs(g, H, seed=11):
+    rng = np.random.RandomState(seed)
+    x = (rng.rand(g.n_pad, 128) - 0.5).astype(np.float32)
+    w = (rng.rand(g.m_pad, H) + 0.5).astype(np.float32)
+    return x, w
+
+
+@functools.lru_cache(maxsize=None)
+def jax_heads(name, bands, direction, H):
+    """JAX's multi-head SpMM and the gradient of sum(sin(.)) in (x, w),
+    banded (Pallas in interpret mode) and ``xla``."""
+    gj, _ = pair(name)
+    x, w = map(jnp.asarray, heads_inputs(gj, H))
+    with pytest.MonkeyPatch.context() as mp:
+        small_bands(mp, bands)
+
+        def run(args, impl):
+            xx, ww = args
+            if impl == "banded":
+                return j_spmm_banded(gj, xx, direction, ww, None, "split",
+                                     True, heads=H)
+            return jspmm(gj, xx, direction=direction, weights=ww,
+                         impl="xla", heads=H)
+
+        out = {}
+        for impl in ("banded", "xla"):
+            def loss(a):
+                y = run(a, impl)
+                return jnp.sum(jnp.sin(y)), y
+
+            (_, y), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+                (x, w))
+            out[impl] = (np.asarray(y), *map(np.asarray, grads))
+        return out
+
+
+@pytest.mark.parametrize("impl", ["banded", "xla"])
+@pytest.mark.parametrize("name,bands,direction,H", HEAD_CASES)
+def test_heads_spmm_matches_jax(monkeypatch, name, bands, direction, H,
+                                impl):
+    """Forward, dx and dw of ``spmm(heads=H)`` against JAX's banded and
+    ``xla`` forms: forward within 1e-4 of the reference's largest entry
+    (JAX's ``split`` keeps about 1e-5 relative), gradients within
+    ``close``'s 1e-3."""
+    want = jax_heads(name, bands, direction, H)
+    small_bands(monkeypatch, bands)
+    _, gt = pair(name)
+    x_np, w_np = heads_inputs(gt, H)
+    x = torch.from_numpy(x_np).requires_grad_()
+    w = torch.from_numpy(w_np).requires_grad_()
+    out = tspmm(gt, x, direction, weights=w, impl=impl, heads=H)
+    assert out.shape == (gt.n_pad, 128)
+    got = (out.detach().numpy(),
+           *torch.autograd.grad(torch.sin(out).sum(), (x, w)))
+    for ref in want.values():
+        scale = np.abs(ref[0]).max()
+        assert np.abs(got[0] - ref[0]).max() <= 1e-4 * scale
+        for gr, r in zip(got[1:], ref[1:]):
+            close(gr.numpy(), r)
+    mask = gt.edge_mask_csc if direction == "pull" else gt.edge_mask
+    assert torch.all(got[2][~mask] == 0)
+
+
+@pytest.mark.parametrize("bands,H", [(1, 2), (3, 2), (3, 4)])
+def test_heads_weight_cotangent_matches_jax(monkeypatch, bands, H):
+    """Kernel 3 with heads (one pass, each head over its own columns)
+    against JAX's per-head padded passes (``spmm.py:224-243``, Pallas in
+    interpret mode), and against the H=1 kernel on each head's column
+    block, per slot."""
+    small_bands(monkeypatch, bands)
+    gj, gt = pair("directed")
+    lj = jbanded.get_layout(gj, "pull", row_bytes=512)
+    lt = tbanded.get_layout(gt, "pull", row_bytes=512)
+    rng = np.random.RandomState(H)
+    x = (rng.rand(gt.n_pad, 128) - 0.5).astype(np.float32)
+    go = (rng.rand(gt.n_pad, 128) - 0.5).astype(np.float32)
+    want = jax.jit(lambda a, b: j_weight_cotangent(
+        a, b, lj, "split", True, heads=H))(jnp.asarray(x), jnp.asarray(go))
+    got = tspmm_mod._weight_cotangent(torch.from_numpy(x),
+                                      torch.from_numpy(go), lt, "split",
+                                      heads=H)
+    d = 128 // H
+    assert len(got) == lt.K
+    for k, (a, b) in enumerate(zip(want, got)):
+        assert b.shape == (len(lt.ids[k]), H)
+        # tests/test_spmm_banded.py:321-331's bound: 1e-4 of magnitude
+        mag = np.abs(np.asarray(a)).max() + 1e-6
+        assert np.abs(b.numpy() - np.asarray(a)).max() <= 1e-4 * mag
+    for h in range(H):
+        blk = tspmm_mod._weight_cotangent(
+            torch.from_numpy(np.ascontiguousarray(x[:, h * d:(h + 1) * d])),
+            torch.from_numpy(np.ascontiguousarray(go[:, h * d:(h + 1) * d])),
+            lt, "split")
+        for b, ref in zip(got, blk):
+            assert torch.equal(b[:, h], ref)
+
+
+@pytest.mark.parametrize("H", [1, 2])
+def test_sddmm_plain_empty_band(H):
+    """A band with no real slot (rmat16's third band at F=128 holds only
+    pad slots) gives zeros, with and without heads; the other band's
+    slots are its row's dot products."""
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    rng = np.random.RandomState(H)
+    bounds = torch.tensor([[0, 300], [0, 0]], dtype=torch.int32)
+    offs = np.zeros((1, 2, 128), np.int32)
+    offs[0, 0] = np.sort(rng.randint(0, 300, 128))
+    offs[0, 0, 0] = 0
+    offs2d = torch.from_numpy(offs)
+    msgs = [torch.from_numpy(rng.randn(512, 8).astype(np.float32))
+            for _ in range(2)]
+    y = torch.from_numpy(rng.randn(128, 8).astype(np.float32))
+    out = k2.banded_sddmm_plain(bounds, offs2d, msgs, y, heads=H)
+    assert out.shape == ((1024,) if H == 1 else (1024, H))
+    assert torch.all(out[300:] == 0)
+    ends = np.append(offs[0, 0, 1:], 300)
+    rows = np.repeat(np.arange(128), ends - offs[0, 0])
+    prod = (y.numpy()[rows] * msgs[0].numpy()[:300]).reshape(300, H, -1)
+    np.testing.assert_allclose(out[:300].numpy().reshape(300, H),
+                               prod.sum(-1), rtol=1e-5, atol=1e-6)
+
+
+def test_heads_pallas_onehot_raises():
+    """The one-band route takes scalar weights: with heads it raises
+    rather than running another route under its name."""
+    _, gt = pair("directed")
+    x_np, w_np = heads_inputs(gt, 2)
+    with pytest.raises(ValueError, match="pallas_onehot"):
+        tspmm(gt, torch.from_numpy(x_np), weights=torch.from_numpy(w_np),
+              impl="pallas_onehot", heads=2)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float64"])
+def test_banded_weights_of_any_dtype(monkeypatch, dtype):
+    """Edge weights that are not float32 go through the band permutes
+    unchanged and are cast with the messages: the banded SpMM and its
+    weight gradient equal those of the same weights in float32."""
+    small_bands(monkeypatch, 3)
+    _, gt = pair("directed")
+    x_np, w_np = inputs(gt, seed=4)
+    x = torch.from_numpy(x_np)
+    w = torch.from_numpy(w_np).to(getattr(torch, dtype)).requires_grad_()
+    w32 = w.detach().float().requires_grad_()
+    outs = [tspmm(gt, x, weights=v, impl="banded") for v in (w, w32)]
+    assert torch.equal(outs[0], outs[1])
+    grads = [torch.autograd.grad(torch.sin(o).sum(), (v,))[0]
+             for o, v in zip(outs, (w, w32))]
+    assert grads[0].dtype == w.dtype
+    assert torch.equal(grads[0], grads[1].to(w.dtype))
