@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``mini_tpu_torch``) once on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, on one card
+    python3 chip_smoke.py --profile    # the GAT step's profile alone
 
 Phases; any failure ends with a traceback and a non-zero exit:
 
@@ -9,11 +10,17 @@ Phases; any failure ends with a traceback and a non-zero exit:
    the CUDA kernels built from ``mini_tpu_torch/csrc/``, one nvcc per
    source, all started together;
 2. each kernel against its plain torch version on the card, at the main
-   path's shapes (RMAT scale 16), with the times of both: the row gather
-   bitwise also at the shapes of the three TPU probes it replaces, the
-   permutation bitwise at 2^21 elements and at the rmat16 composite rank,
-   the SDDMM also with 2 heads; and kernel wrappers given inputs that
-   require grad must raise;
+   path's shapes (RMAT scale 16): the row gather bitwise also at the
+   shapes of the three TPU probes it replaces, the permutation bitwise at
+   2^21 elements and at the rmat16 composite rank, the SDDMM also with 2
+   heads; the segment sum (kernel 2) within SUM_TOL at F=128 and 32 in
+   float32 and bf16, two launches bitwise equal and equal to the plain
+   emulation of its schedule, also on a star graph (F=1, F=33 bf16,
+   F=128) and on the rmat18 pull layout (K=9, F=32); kernel wrappers
+   given inputs that require grad must raise.  Every kernel is timed over
+   many back-to-back launches (``cuda_ms``) beside its plain version, its
+   bound (``bound``) and, where one PyTorch call computes the same
+   function, that call;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
    weighted)`` and from 3 more reached sources: labels bitwise equal to
    ``bfs_cpu``, preds the host's min-id parent; time and MTEPS;
@@ -34,14 +41,16 @@ Phases; any failure ends with a traceback and a non-zero exit:
    forward against the float64 oracle ``gat_forward_cpu``, bf16 within
    3e-2, the fused forward; the first train step's loss and gradients,
    the banded native backward against the fused path; per-step launches
-   of all six kernels; step times and the peak device memory of a step
-   (also at RMAT scale 18); ER-2048 trained until its loss falls;
+   of all six kernels; step times, the step's device time by kernel
+   (``torch.profiler``) and the peak device memory of a step (also at
+   RMAT scale 18); ER-2048 trained until its loss falls;
 8. GraphSAGE [128, 128, 32]: ER-2048 against ``sage_forward_cpu``, the
    RMAT graph's banded forward and gradients against ``impl="xla"``, the
    train step time;
 9. one JSON line of the kernels (launch counts of phases 3-8, each phase
-   counted from 0, errors of phase 2, times), then the last line
-   ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+   counted from 0; phase 2's errors, times, bounds and library calls),
+   then the last line ``{"ok": true, "device": {"platform": "gpu",
+   ...}}``.
 
 With no CUDA device it exits non-zero before printing any result.
 """
@@ -73,23 +82,65 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, device, warmup: int = 2, samples: int = 7) -> float:
-    """Median of ``samples`` CUDA-event timings of one ``fn()`` call."""
+def cuda_ms(fn, device, windows: int = 5, min_calls: int = 20,
+            min_window_ms: float = 5.0, max_calls: int = 2000) -> float:
+    """Mean time of one ``fn()`` call over N back-to-back calls between one
+    pair of CUDA events, N >= ``min_calls`` and enough for
+    ``min_window_ms`` of work; the median of ``windows`` such windows.
+    (One call per window would time the ctypes enqueue, about 0.02 ms.)"""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    once = max(start.elapsed_time(end), 1e-3)
+    n = int(min(max_calls, max(min_calls, np.ceil(min_window_ms / once))))
     times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    for _ in range(windows):
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
+
+
+# The least time the card could take (NVIDIA's H100 SXM data sheet): bytes over the HBM rate, operations over the
+# float32 rate outside the tensor cores; the larger bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def library(call: str, fn, device):
+    """``(call, ms)`` of one PyTorch call that computes a kernel's function,
+    timed like the kernel; ``(call + reason, None)`` when it raises."""
+    try:
+        return call, cuda_ms(fn, device, windows=3)
+    except RuntimeError as exc:
+        return f"{call} raised: {str(exc).splitlines()[0][:80]}", None
+
+
+def kernel_stats(err, ms, plain_ms, bnd, lib) -> dict:
+    """One kernel's entry of the JSON line."""
+    call, lib_ms = lib
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+                library_ms=lib_ms, lib_call=call, lib_ms=lib_ms)
+
+
+def pct(ms, bnd) -> str:
+    return f"{100 * bnd['bound_ms'] / ms:.0f}% of the {bnd['bound_by']} bound"
 
 
 def phase_build():
@@ -113,9 +164,13 @@ def phase_build():
     return card
 
 
-def phase_kernels(g, device):
+def phase_kernels(g, hg_big, device):
     """Kernel 1 on the graph's CSC offsets, kernels 2 and 3 on its pull
-    layout, kernel 2 with one band (``segment_sum``) on the CSC offsets."""
+    layout, kernel 2 also on a star graph and on the pull layout of
+    ``hg_big``, the rmat18 host graph (K=9), kernel 2 with one band
+    (``segment_sum``) on the CSC offsets; each timed against its plain
+    version, its bound and, where one PyTorch call computes the same
+    function, that call."""
     import torch
 
     from mini_tpu_torch.graph.banded import get_layout
@@ -134,6 +189,9 @@ def phase_kernels(g, device):
         (rng.rand(m_pad) * 100 - 50).astype(np.float32)).to(device)
     cases = [(op, ivals) for op in ("min", "max", "bor", "sum")] + [
         (op, fvals) for op in ("min", "max", "sum")]
+    offsets64, dsts64 = g.col_offsets.long(), g.csc_dsts.long()
+    # read once: the values and the offsets; written once: one per row
+    bnd1 = bound(m_pad * 4 + (g.n_pad + 1) * 4 + g.n_pad * 4)
     for op, vals in cases:
         args = (g.col_offsets, g.csc_dsts, vals, op)
         got = k1.segment_reduce(*args)
@@ -141,57 +199,86 @@ def phase_kernels(g, device):
         torch.cuda.synchronize(device)
         if vals.dtype == torch.float32 and op == "sum":
             err = float((got - want).abs().max())
-            bound = SUM_TOL * float(want.abs().max())
-            assert err <= bound, (op, err, bound)
+            limit = SUM_TOL * float(want.abs().max())
+            assert err <= limit, (op, err, limit)
         else:
             assert torch.equal(got, want), (op, vals.dtype)
             err = 0.0
         err1 = max(err1, err)
         ms = cuda_ms(lambda: k1.segment_reduce(*args), device)
         plain_ms = cuda_ms(lambda: k1.segment_reduce_plain(*args), device)
+        if op == "bor":
+            lib = ("none: no PyTorch call reduces by bitwise or", None)
+        elif vals.dtype == torch.float32:
+            lib = library(f"torch.segment_reduce({op})", lambda: (
+                torch.segment_reduce(vals, op, offsets=offsets64, axis=0)),
+                device)
+        else:  # segment_reduce takes floating types only
+            red = {"min": "amin", "max": "amax", "sum": "sum"}[op]
+            lib = library(f"Tensor.scatter_reduce({red})", lambda: (
+                torch.zeros(g.n_pad, dtype=vals.dtype, device=device)
+                .scatter_reduce(0, dsts64, vals, red, include_self=False)),
+                device)
         log(f"# segment_reduce {op} {str(vals.dtype)[6:]}: err {err:.3g} "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms ({pct(ms, bnd1)}) plain {plain_ms:.4f} ms "
+            f"{lib[0]} {lib[1]} ms")
         if op == "max" and vals.dtype == torch.int32:
-            t1 = (ms, plain_ms)  # the BFS advance's or-reduce
-    stats["segment_reduce"] = dict(max_abs_err=err1, ms=t1[0],
-                                   plain_ms=t1[1])
+            t1 = (ms, plain_ms, lib)  # the BFS advance's or-reduce
+    stats["segment_reduce"] = kernel_stats(err1, t1[0], t1[1], bnd1, t1[2])
 
     layout = get_layout(g, "pull", row_bytes=F_HID * 4)
     dev = layout.dev(device)
     err2, t2 = 0.0, None
     for F in (F_HID, F_OUT):
-        x32 = torch.from_numpy(
-            rng.rand(g.n_pad, F).astype(np.float32) - 0.5).to(device)
         for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            msgs = []
-            for k in range(layout.K):
-                lo = k * layout.band_rows
-                hi = min(lo + layout.band_rows, layout.n_pad)
-                xg = torch.index_select(x[lo:hi], 0, dev["ids"][k])
-                msgs.append(xg * dev["weights"][k][:, None].to(dtype))
-            args = (dev["bounds"], dev["offs2d"], msgs)
-            got = k2.banded_segment_sum(*args)
-            want = k2.banded_segment_sum_plain(*args)
-            torch.cuda.synchronize(device)
-            err = float((got - want).abs().max())
-            bound = SUM_TOL * float(want.abs().max())
-            assert err <= bound, (F, dtype, err, bound)
+            msgs = band_messages(layout, dev, F, dtype, rng, device)
+            err, ms, plain_ms, bnd, lib = check_banded_sum(
+                f"rmat{SCALE} F={F} {str(dtype)[6:]}", layout, dev, msgs,
+                device)
             err2 = max(err2, err)
-            ms = cuda_ms(lambda: k2.banded_segment_sum(*args), device)
-            plain_ms = cuda_ms(
-                lambda: k2.banded_segment_sum_plain(*args), device)
-            log(f"# banded_segment_sum F={F} {str(dtype)[6:]} K={layout.K}: "
-                f"err {err:.3g} (bound {bound:.3g}) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms")
             if F == F_HID and dtype == torch.float32:
-                t2 = (ms, plain_ms)
-    stats["banded_segment_sum"] = dict(max_abs_err=err2, ms=t2[0],
-                                       plain_ms=t2[1])
-
+                t2 = (ms, plain_ms, bnd, lib)
     # the streams of the last case above, made to require grad
     refuses_grad("banded_segment_sum", lambda *rg: k2.banded_segment_sum(
         dev["bounds"], dev["offs2d"], rg), *msgs)
+
+    # one row holds every edge (n - 1 = 99,999 of them, over 4 bands), so
+    # it spans hundreds of walkers; and odd widths take the scalar path.
+    # These layouts are built outside the layout cache, so that their
+    # device arrays go with them and phase 7's peak memory is the step's.
+    from mini_tpu_torch.graph import GraphSlice, from_edges
+    from mini_tpu_torch.graph.banded import (
+        FAST_TABLE_BYTES, build_banded_layout,
+    )
+
+    def pull_layout(hg_):
+        gs = GraphSlice.from_host(hg_, device="cpu")
+        return build_banded_layout(
+            gs.col_offsets.numpy(), gs.csc_srcs.numpy(),
+            gs.csc_weights.numpy(), gs.edge_mask_csc.numpy(),
+            FAST_TABLE_BYTES // (F_HID * 4), "pull")
+
+    n = 100_000
+    lay_s = pull_layout(from_edges(np.arange(1, n), np.zeros(n - 1, np.int64),
+                                   num_nodes=n))
+    dev_s = lay_s.dev(device)
+    for F, dtype in ((1, torch.float32), (33, torch.bfloat16),
+                     (F_HID, torch.float32)):
+        msgs = band_messages(lay_s, dev_s, F, dtype, rng, device)
+        err2 = max(err2, check_banded_sum(
+            f"star n={n} F={F} {str(dtype)[6:]}", lay_s, dev_s,
+            msgs, device)[0])
+    del lay_s, dev_s
+
+    lay_b = pull_layout(hg_big)
+    dev_b = lay_b.dev(device)
+    for dtype in (torch.float32, torch.bfloat16):
+        msgs = band_messages(lay_b, dev_b, F_OUT, dtype, rng, device)
+        err2 = max(err2, check_banded_sum(
+            f"rmat{MEMORY_SCALE} F={F_OUT} {str(dtype)[6:]}", lay_b, dev_b,
+            msgs, device)[0])
+    del msgs, lay_b, dev_b
+    stats["banded_segment_sum"] = kernel_stats(err2, *t2)
 
     stats["banded_sddmm"] = check_sddmm(layout, dev, rng, device)
     stats["segment_sum"] = check_segment_sum(g, rng, device)
@@ -199,6 +286,66 @@ def phase_kernels(g, device):
     stats["apply_fixed_perm"] = check_permute(g, rng, device)
     log("# phase 2: kernels match their plain versions")
     return stats
+
+
+def band_messages(layout, dev, F, dtype, rng, device) -> list:
+    """The K weighted band gathers of a random ``[n_pad, F]`` x, as the
+    banded SpMM makes them."""
+    import torch
+
+    x = torch.from_numpy(rng.rand(layout.n_pad, F).astype(np.float32)
+                         - 0.5).to(device=device, dtype=dtype)
+    msgs = []
+    for k in range(layout.K):
+        lo = k * layout.band_rows
+        xg = torch.index_select(x[lo: lo + layout.band_rows], 0,
+                                dev["ids"][k])
+        msgs.append(xg * dev["weights"][k][:, None].to(dtype))
+    return msgs
+
+
+def check_banded_sum(label, layout, dev, msgs, device):
+    """Kernel 2 on the layout's cached schedule: within SUM_TOL of the
+    plain version, two launches bitwise equal, bitwise equal to the plain
+    emulation of its schedule; its time against its bound, the plain
+    version and ``index_add_`` over the concatenated real slots."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    args = (dev["bounds"], dev["offs2d"], msgs)
+    prefix = dev["row_prefix"]
+    got = k2.banded_segment_sum(*args, row_prefix=prefix)
+    again = k2.banded_segment_sum(*args, row_prefix=prefix)
+    want = k2.banded_segment_sum_plain(*args)
+    emulated = k2.banded_segment_sum_scheduled_plain(*args,
+                                                     row_prefix=prefix)
+    torch.cuda.synchronize(device)
+    err = float((got - want).abs().max())
+    limit = SUM_TOL * float(want.abs().max())
+    assert err <= limit, (label, err, limit)
+    assert torch.equal(got, again), f"{label}: two launches differ"
+    assert torch.equal(got, emulated), f"{label}: not the emulated schedule"
+    F, elem = msgs[0].shape[1], msgs[0].element_size()
+    real = [int(b) for b in layout.bounds[:, -1]]
+    bnd = bound(sum(real) * F * elem + layout.n_pad * F * 4
+                + layout.K * layout.n_pad * 4 + (layout.n_pad + 1) * 4,
+                ops=sum(real) * F)
+    ms = cuda_ms(lambda: k2.banded_segment_sum(*args, row_prefix=prefix),
+                 device)
+    plain_ms = cuda_ms(lambda: k2.banded_segment_sum_plain(*args), device,
+                       windows=3)
+    # index_add_ wants one dtype: bf16 messages go in as float32 copies,
+    # made outside the timed region
+    seg = torch.cat([s[:n] for s, n in zip(dev["seg"], real)]).long()
+    flat = torch.cat([m[:n] for m, n in zip(msgs, real)]).float()
+    lib = library("Tensor.index_add_", lambda: torch.zeros(
+        layout.n_pad, F, device=device).index_add_(0, seg, flat), device)
+    log(f"# banded_segment_sum {label} K={layout.K}: err {err:.3g} (bound "
+        f"{limit:.3g}), two launches and the emulated schedule bitwise; "
+        f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) "
+        f"plain {plain_ms:.4f} ms index_add_ {lib[1]} ms")
+    return err, ms, plain_ms, bnd, lib
 
 
 def check_sddmm(layout, dev, rng, device):
@@ -218,6 +365,16 @@ def check_sddmm(layout, dev, rng, device):
         real[base: base + int(layout.bounds[k, -1])] = True
         base += len(layout.ids[k])
     err3, t3 = 0.0, None
+    real_slots = sum(int(b) for b in layout.bounds[:, -1])
+    meta = layout.K * layout.n_pad * 4 + layout.bounds.size * 4
+    none = ("none: its messages are pre-gathered per band; no one PyTorch "
+            "call dots them with their staircase rows", None)
+
+    def bnd3(elem, H=1):  # messages and y read once, dw written once
+        return bound(real_slots * F_HID * elem + layout.n_pad * F_HID * 4
+                     + layout.total_padded * H * 4 + meta,
+                     ops=2 * real_slots * F_HID)
+
     for dtype in (torch.float32, torch.bfloat16):
         msgs = []
         for k in range(layout.K):
@@ -238,12 +395,15 @@ def check_sddmm(layout, dev, rng, device):
         err = float(diff.max())
         err3 = max(err3, err)
         ms = cuda_ms(lambda: k2.banded_sddmm(*args), device)
-        plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args), device)
+        plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args), device,
+                           windows=3)
+        bnd = bnd3(msgs[0].element_size())
         log(f"# banded_sddmm F={F_HID} {str(dtype)[6:]} K={layout.K}: err "
             f"{err:.3g} (max per-slot ratio {ratio:.3g}, bound {DOT_TOL}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) "
+            f"plain {plain_ms:.4f} ms")
         if dtype == torch.float32:
-            t3 = (ms, plain_ms)
+            t3 = (ms, plain_ms, bnd, none)
     # GAT's weight cotangent: 2 heads, each over its 64 columns, one launch
     H = 2
     msgs = [torch.index_select(x[k * layout.band_rows:
@@ -262,11 +422,14 @@ def check_sddmm(layout, dev, rng, device):
     assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
     err3 = max(err3, float(diff.max()))
     ms = cuda_ms(lambda: k2.banded_sddmm(*args, heads=H), device)
-    plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args, heads=H), device)
+    plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args, heads=H), device,
+                       windows=3)
+    bnd = bnd3(4, H)
     log(f"# banded_sddmm F={F_HID} H={H} float32 K={layout.K}: err "
         f"{float(diff.max()):.3g} (max per-slot ratio {ratio:.3g}, bound "
-        f"{DOT_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err3, ms=t3[0], plain_ms=t3[1])
+        f"{DOT_TOL}) kernel {ms:.4f} ms ({pct(ms, bnd)}, "
+        f"{bnd['bound_ms']:.4f} ms) plain {plain_ms:.4f} ms")
+    return kernel_stats(err3, *t3)
 
 
 def refuses_grad(name, fn, *tensors) -> None:
@@ -304,8 +467,12 @@ def check_gather(layout, dev, rng, device):
         assert torch.equal(got, kg.gather_rows_plain(table, idx)), label
         ms = cuda_ms(lambda: kg.gather_rows(table, idx), device)
         plain_ms = cuda_ms(lambda: kg.gather_rows_plain(table, idx), device)
+        elem = table.element_size()
+        bnd = bound(W * F * elem + M * 4 + M * F * elem)
         log(f"# gather_rows {label} table [{W},{F}] {str(dtype)[6:]} "
-            f"idx [{M}]: bitwise, kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"idx [{M}]: bitwise, kernel {ms:.4f} ms ({pct(ms, bnd)}, "
+            f"{bnd['bound_ms']:.4f} ms) plain = index_select {plain_ms:.4f} "
+            f"ms")
 
     for dtype in (torch.float32, torch.bfloat16):
         case("probe_dma_gather", 65536, 128 * 1024, dtype)
@@ -328,14 +495,21 @@ def check_gather(layout, dev, rng, device):
             assert torch.equal(a, b)
         ms = cuda_ms(lambda: run(kg.gather_rows), device)
         plain_ms = cuda_ms(lambda: run(kg.gather_rows_plain), device)
+        elem = x.element_size()
+        bnd = bound(layout.n_pad * F_HID * elem + layout.total_padded * 4
+                    + layout.total_padded * F_HID * elem)
         log(f"# gather_rows rmat{SCALE} pull bands F={F_HID} "
             f"{str(dtype)[6:]} K={layout.K} ({layout.total_padded} rows): "
-            f"bitwise, kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"bitwise, kernel {ms:.4f} ms ({pct(ms, bnd)}, "
+            f"{bnd['bound_ms']:.4f} ms) plain = index_select "
+            f"{plain_ms:.4f} ms")
         if dtype == torch.float32:
-            t = (ms, plain_ms)
+            t = (ms, plain_ms, bnd)
     refuses_grad("gather_rows", lambda tb: kg.gather_rows(tb, dev["ids"][0]),
                  bands[0])
-    return dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1])
+    # the plain version is the library call: index_select per band
+    return kernel_stats(0.0, t[0], t[1], t[2],
+                        ("torch.index_select (the plain version)", t[1]))
 
 
 def check_permute(g, rng, device):
@@ -368,14 +542,20 @@ def check_permute(g, rng, device):
             assert all(torch.equal(a, b) for a, b in zip(got, want)), label
         ms = cuda_ms(lambda: kp.permute(r, p), device)
         plain_ms = cuda_ms(lambda: kp.permute_plain(r, p), device)
-        log(f"# apply_fixed_perm {label} [{r.shape[0]}] x {len(p)} float32 "
-            f"payloads: bitwise both ways, kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms")
-        t = (ms, plain_ms)
+        n = r.shape[0]
+        bnd = bound(n * 4 + 2 * n * 4 * len(p))
+        r64 = r.long()
+        lib = library(f"Tensor.index_copy_ x {len(p)}", lambda: [
+            torch.empty_like(q).index_copy_(0, r64, q) for q in p], device)
+        log(f"# apply_fixed_perm {label} [{n}] x {len(p)} float32 "
+            f"payloads: bitwise both ways, kernel {ms:.4f} ms "
+            f"({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) plain "
+            f"{plain_ms:.4f} ms {lib[0]} {lib[1]} ms")
+        t = (ms, plain_ms, bnd, lib)
     check_permute_dtypes(g, comp, p[0], rng, device)
     refuses_grad("apply_fixed_perm", lambda v: kp.permute(comp, [v]),
                  p[0])
-    return dict(max_abs_err=0.0, ms=t[0], plain_ms=t[1])
+    return kernel_stats(0.0, *t)
 
 
 def check_permute_dtypes(g, comp, base, rng, device):
@@ -424,6 +604,7 @@ def check_segment_sum(g, rng, device):
 
     x = torch.from_numpy(rng.rand(g.n_pad, F_HID).astype(np.float32)
                          - 0.5).to(device)
+    offsets64, dsts64 = g.col_offsets.long(), g.csc_dsts.long()
     err4, t4 = 0.0, None
     for dtype in (torch.float32, torch.bfloat16):
         msgs = (torch.index_select(x, 0, g.csc_srcs)
@@ -433,16 +614,34 @@ def check_segment_sum(g, rng, device):
         want = k4.segment_sum_plain(*args)
         torch.cuda.synchronize(device)
         err = float((got - want).abs().max())
-        bound = SUM_TOL * float(want.abs().max())
-        assert err <= bound, (dtype, err, bound)
+        limit = SUM_TOL * float(want.abs().max())
+        assert err <= limit, (dtype, err, limit)
+        assert torch.equal(got, k4.segment_sum(*args)), "launches differ"
         err4 = max(err4, err)
         ms = cuda_ms(lambda: k4.segment_sum(*args), device)
-        plain_ms = cuda_ms(lambda: k4.segment_sum_plain(*args), device)
+        plain_ms = cuda_ms(lambda: k4.segment_sum_plain(*args), device,
+                           windows=3)
+        elem = msgs.element_size()
+        bnd = bound(g.m_pad * F_HID * elem + (g.n_pad + 1) * 4
+                    + g.n_pad * F_HID * 4, ops=g.m_pad * F_HID)
+        # one call each; index_add_ wants one dtype (float32 copies of bf16
+        # messages, made outside the timed region)
+        flat = msgs.float()
+        libs = [library("torch.segment_reduce(sum)", lambda: (
+                    torch.segment_reduce(msgs, "sum", offsets=offsets64,
+                                         axis=0)), device),
+                library("Tensor.index_add_", lambda: torch.zeros(
+                    g.n_pad, F_HID, device=device).index_add_(
+                        0, dsts64, flat), device)]
+        timed = [lib for lib in libs if lib[1] is not None]
+        lib = min(timed, key=lambda c: c[1]) if timed else libs[0]
         log(f"# segment_sum F={F_HID} {str(dtype)[6:]} K=1: err {err:.3g} "
-            f"(bound {bound:.3g}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            f"(bound {limit:.3g}), two launches bitwise; kernel {ms:.4f} ms "
+            f"({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) plain "
+            f"{plain_ms:.4f} ms; " + "; ".join(f"{c} {t} ms" for c, t in libs))
         if dtype == torch.float32:
-            t4 = (ms, plain_ms)
-    return dict(max_abs_err=err4, ms=t4[0], plain_ms=t4[1])
+            t4 = (ms, plain_ms, bnd, lib)
+    return kernel_stats(err4, *t4)
 
 
 def host_min_parent(hg, labels):
@@ -665,10 +864,10 @@ def phase_grad(g, device):
     got = spmm(g, x0, impl="pallas_onehot")
     ref = spmm(g, x0.double(), impl="xla").float()
     err = float((got - ref).abs().max())
-    bound = SUM_TOL * float(ref.abs().max())
-    assert err <= bound, (err, bound)
+    limit = SUM_TOL * float(ref.abs().max())
+    assert err <= limit, (err, limit)
     log(f"# phase 6: spmm pallas_onehot vs xla (float64): err {err:.3g} "
-        f"(bound {bound:.3g})")
+        f"(bound {limit:.3g})")
 
 
 GAT_DIMS, GAT_HEADS = [F_IN, 32, 32], 2  # bench.py:186,225-227
@@ -704,12 +903,83 @@ def grads_close(got, ref, tol, floor=1e-7) -> float:
     return worst
 
 
-def phase_gat(hg, g, device):
+# kernel names of each part of a step's device time, in the order tried
+PROFILE_PARTS = (
+    ("kernel 2 (banded_segment_sum)", ("banded_segment_sum_kernel",
+                                       "banded_fixup_kernel")),
+    ("kernel 3 (banded_sddmm)", ("banded_sddmm_kernel",)),
+    ("row gather (gather_rows)", ("gather_rows_kernel",)),
+    ("kernel 1 (segment_reduce)", ("segreduce_kernel",)),
+    ("permutation (apply_fixed_perm)", ("permute_kernel",)),
+    ("dense mm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
+)
+
+
+def profile_gat(g, device, steps: int = 3) -> None:
+    """The banded GAT train step (float32 and bf16 messages) under
+    ``torch.profiler``: device busy time per step, its kernel span and
+    idle share, and the busy time by part (PROFILE_PARTS, the rest as
+    elementwise and other)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mini_tpu_torch.models.gat import (
+        gat_init, gat_init_opt, gat_train_step,
+    )
+
+    params = gat_init(torch.Generator().manual_seed(0), GAT_DIMS,
+                      heads=GAT_HEADS, device=device)
+    opt = gat_init_opt(params)
+    x = torch.from_numpy(np.random.RandomState(0).rand(g.n_pad, F_IN)
+                         .astype(np.float32)).to(device)
+    labels = torch.from_numpy(np.random.RandomState(1).randint(
+        0, N_CLASSES, g.n_pad)).to(device)
+    mask = torch.arange(g.n_pad, device=device) < g.n
+    for mdt in (None, torch.bfloat16):
+        def step():
+            gat_train_step(params, opt, g, x, (labels, mask), 1e-2,
+                           message_dtype=mdt)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize(device)
+        kern = [e for e in prof.events()
+                if e.device_type == DeviceType.CUDA]
+        name = "f32" if mdt is None else "bf16"
+        if not kern:
+            log(f"# gat profile {name}: the profiler saw no device events")
+            continue
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / steps
+        span = (max(e.time_range.end for e in kern)
+                - min(e.time_range.start for e in kern)) / 1e3 / steps
+        parts = {p: [0.0, 0] for p, _ in PROFILE_PARTS}
+        parts["elementwise and other"] = [0.0, 0]
+        for e in kern:
+            part = next((p for p, keys in PROFILE_PARTS
+                         if any(k in e.name for k in keys)),
+                        "elementwise and other")
+            parts[part][0] += e.time_range.elapsed_us() / 1e3 / steps
+            parts[part][1] += 1
+        log(f"# gat profile rmat{SCALE} {name} (banded, {steps} steps): busy "
+            f"{busy:.3f} ms/step in a {span:.3f} ms kernel span, idle share "
+            f"{1 - busy / span:.3f}; " + "; ".join(
+                f"{p} {t:.3f} ms ({100 * t / busy:.1f}%, "
+                f"{n / steps:g} kernels)" for p, (t, n) in parts.items()))
+
+
+def phase_gat(hg, g, hg_big, device):
     """bench.py's gat rows (gat_f32, gat_bf16, gat_train_*) on the RMAT
-    graph, the peak memory of a train step, and ER-2048 learning."""
+    graph, its profile by kernel, the peak memory of a train step (also on
+    ``hg_big``, the rmat18 host graph), and ER-2048 learning."""
     import torch
 
-    from mini_tpu_torch.graph import GraphSlice, erdos_renyi, rmat
+    from mini_tpu_torch.graph import GraphSlice, erdos_renyi
     from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
     from mini_tpu_torch.models.gat import (
         gat_forward, gat_forward_cpu, gat_init, gat_init_opt, gat_train_step,
@@ -820,16 +1090,16 @@ def phase_gat(hg, g, device):
         log(f"# gat train step rmat{SCALE} {'f32' if mdt is None else 'bf16'}"
             f": peak device memory {peak:.3f} GiB (max_memory_allocated; "
             f"{base:.3f} GiB allocated before the step)")
+    profile_gat(g, device)
+
     t0 = time.perf_counter()
-    hg_big = rmat(MEMORY_SCALE, edge_factor=16, seed=0, undirected=True,
-                  weighted=True)
     g_big = GraphSlice.from_host(hg_big, device=device)
     lp = get_layout(g_big, "pull", row_bytes=F * 4)
     lb = get_layout(g_big, "push", row_bytes=F * 4)
     get_pull_to_push_rank(g_big, lp, lb)
     build_s = time.perf_counter() - t0
-    log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (host build with "
-        f"layouts {build_s:.2f} s, K={lp.K})")
+    log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (device graph, "
+        f"layouts and composite rank {build_s:.2f} s, K={lp.K})")
     if build_s <= BUILD_LIMIT_S:
         x_big = torch.rand(g_big.n_pad, F_IN, device=device,
                            generator=torch.Generator(device).manual_seed(0))
@@ -844,8 +1114,7 @@ def phase_gat(hg, g, device):
     else:
         log(f"# rmat{MEMORY_SCALE} host build over {BUILD_LIMIT_S} s: its "
             f"peak memory is not measured")
-    del g_big, hg_big
-    torch.cuda.empty_cache()
+    del g_big
 
     # tests/test_models.py:196-214: a few steps lower the loss
     g_er = GraphSlice.from_host(
@@ -981,7 +1250,7 @@ def drive(path: str, fn, *args) -> dict:
     return counts
 
 
-def main() -> None:
+def main(argv) -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -1001,7 +1270,15 @@ def main() -> None:
     g = GraphSlice.from_host(hg, device=device)
     log(f"# rmat{SCALE}: n={hg.n} m={hg.m} n_pad={g.n_pad} m_pad={g.m_pad} "
         f"(host build {time.perf_counter() - t0:.2f} s)")
-    stats = phase_kernels(g, device)
+    if argv == ["--profile"]:  # the GAT step's profile alone, no result
+        profile_gat(g, device)
+        return
+    t0 = time.perf_counter()
+    hg_big = rmat(MEMORY_SCALE, edge_factor=16, seed=0, undirected=True,
+                  weighted=True)
+    log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (host graph "
+        f"{time.perf_counter() - t0:.2f} s)")
+    stats = phase_kernels(g, hg_big, device)
 
     hg_er = erdos_renyi(2048, 16384, seed=0, undirected=True)
 
@@ -1015,9 +1292,11 @@ def main() -> None:
         drive("gcn_forward", gcn_forward_path),
         drive("gcn_train", phase_train, g, device),
         drive("spmm_grad_sddmm", phase_grad, g, device),
-        drive("gat", phase_gat, hg, g, device),
-        drive("sage", phase_sage, g, device),
+        drive("gat", phase_gat, hg, g, hg_big, device),
     ]
+    del hg_big
+    torch.cuda.empty_cache()
+    paths.append(drive("sage", phase_sage, g, device))
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():
         assert count > 0, f"{name} was not launched on the main path"
@@ -1034,4 +1313,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -10,6 +10,8 @@ package stays the reference the port is tested against.
 
 __version__ = "0.1.0"
 
+from mini_tpu_torch.utils.device import default_device  # noqa: F401
+
 from mini_tpu_torch.graph import (  # noqa: F401
     HostGraph,
     GraphSlice,

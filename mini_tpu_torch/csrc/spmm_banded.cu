@@ -9,27 +9,390 @@
 // banded_segment_sum.  The TPU version builds a one-hot "staircase" per
 // 512-edge chunk and multiplies it on the matrix unit, with a bf16 hi/lo
 // split for float32 and double-buffered DMA; none of that carries over.
-//
-// What bounds it on an H100: bytes.  Every message element is read once
-// and added once: 0.25 operations per byte for float32 (0.5 for bf16),
-// far below the ~295 operations per byte at which the card stops being
-// memory-bound.  So the design reads each message row exactly once,
-// coalesced, and accumulates in registers: a block owns one 128-row tile
-// and a 32-column slice of F; its threadIdx.x is the column (one warp
-// reads 128 contiguous bytes of a float32 row) and its 8 warps split the
-// tile's rows.  Each thread walks its row's segment in every band in
-// order, adding in float32, and writes its output element once.  No
-// atomics, so the result is deterministic run to run.
-//
-// Known limits, for later PRs: the gather x[band][ids] * w that makes the
-// messages runs outside the kernel (so messages make a round trip through
-// device memory), a hub row serializes onto one warp, and loads are 4 B
-// (2 B for bf16) per thread rather than 16 B.
-//
 // The same one-band launch (K = 1, bounds = offsets[::128], offs2d =
 // offsets[:-1]) is the Hopper form of mini_tpu/ops/pallas/spmm_kernel.py,
 // segment_sum_pallas: a CSC segment sum is a banded layout with one band.
 //
+// What bounds it on an H100: bytes.  Every message element is read once
+// and added once: 0.25 adds per byte in float32 (0.5 in bf16), far below
+// the ~295 operations per byte at which the card stops being memory-bound.
+// At rmat16, K = 3, F = 128 float32 it reads 1.074 GB of messages and
+// writes 33.6 MB: 0.331 ms at 3.35 TB/s.
+//
+// Why the first schedule missed that bound.  A block owned one 128-row
+// tile and each thread one output element, walking its row's segments one
+// 4-byte load after another.  The rmat16 hub has 25,801 in-edges (13,031
+// in one band), so its threads ran ~25.8K dependent adds long after every
+// other tile had finished: 2.95 ms whatever the bytes (F = 32 bf16, 8x
+// fewer bytes, still took 2.59 ms), 11% of the bound.
+//
+// The schedule now balances slots, not rows (moderngpu's lbs_segreduce,
+// Merrill and Garland's merge-based sparse product):
+// - The virtual order lists every real slot row by row: row v's segment
+//   in band 0, then in band 1, ... band K-1.  row_prefix[v] (int32
+//   [n_rows + 1], built once per layout on the device and cached next to
+//   it) counts the slots of the rows before v.
+// - That order is cut into chunks of `chunk` slots, one chunk per walker,
+//   so a hub row spans many walkers.  The wrapper sets chunk = 16 G (G
+//   the walker's lanes, below), at least 128: enough walkers to fill the
+//   card whatever F (kernel_plan in ops/kernels/spmm_banded.py sets G,
+//   the chunk and the fix-up's lanes).  A
+//   walker finds its first row by binary search over row_prefix and walks
+//   forward; its slots in band k are one contiguous range of stream k, and
+//   every slot is read once.
+// - A walker is G lanes, each holding V columns of a message row in one
+//   16-byte load: V = 4 in float32, 8 in bf16, so at F = 128 float32 one
+//   warp instruction reads a whole 512-byte row, and at F = 32 (128 bytes)
+//   a warp holds 4 walkers.  An F that is not a multiple of V, or a
+//   stream that is not 16-byte aligned, takes the scalar form (V = 1) of
+//   the same kernel, which the wrapper chooses.  Columns past 32 V go to
+//   more column blocks (gridDim.y).
+// - A walker keeps a batch of loads in flight (4 rows in float32, 8 in
+//   bf16): it computes the batch's slot addresses (segments are
+//   contiguous, so they are known ahead), starts the loads, then adds
+//   them into its row's float32 accumulators, flushing at each row
+//   change.
+// - A row that lies inside one chunk is written straight to out.  A row
+//   that crosses a chunk edge leaves its partial sum in a float32 carry
+//   buffer [n_walkers, 2, F]: side 0 for the part of a row that started
+//   in an earlier chunk, side 1 for the first part of a row that goes on
+//   past the chunk's end.  A second, small launch (the fix-up, a warp per
+//   row) adds each such row's carries and writes it; it also writes the
+//   zeros of the rows with no slot.  A hub's carries (~200 at rmat16, F =
+//   32) are split into consecutive runs over the warp's spare lanes, each
+//   run summed in chunk order, the runs' sums then added in order.
+// - No atomics: two launches on the same inputs give the same bits, and
+//   every output row is written exactly once.  The order of additions is
+//   that of banded_segment_sum_scheduled_plain (ops/kernels/spmm_banded.py),
+//   which reproduces the kernel's result bit for bit.
+//
+// Measured by chip_smoke.py at rmat16, K = 3 (NVIDIA H100 80GB HBM3, 700
+// W; PERF.md): the old schedule 3.0006 ms at F = 128 float32, 11% of the
+// bound; this one 0.4308 ms, 77%, and 61% in bf16.  Not built: a ring of
+// shared-memory stages filled by cp.async.bulk / TMA.  The register batch
+// keeps 4 x 512 bytes in flight per warp at F = 128 float32, which
+// already reaches three quarters of the bound; the
+// ring is the next step for bf16 and narrow rows, with fusing the band
+// gather x[band][ids] * w into this kernel (which changes its function).
+//
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kRowTile = 128;
+constexpr int kMaxBands = 128;
+constexpr int kWarp = 32;
+constexpr int kSumThreads = 256;   // threads per block of the segment sum
+constexpr int kFixBatch = 8;       // carries a fix-up lane has in flight
+constexpr int kRowSteps = 4;       // empty rows stepped over before a search
+constexpr int kFixWarps = 8;       // warps per block of the fix-up
+constexpr int kFixBlocks = 132 * 8;
+constexpr int kSlotsPerWarp = 32;  // one output slot per lane
+constexpr int kSddmmWarps = 8;     // warps per block of the SDDMM
+constexpr int kColsPerLane = 8;    // y values a lane keeps in registers
+constexpr int kColBlock = kWarp * kColsPerLane;  // columns per pass
+
+enum { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
+
+// The K stream pointers travel by value in the kernel's parameters.
+struct StreamPtrs {
+  const void* p[kMaxBands];
+};
+
+// Flat slot index of each band's first slot; base[K] is the total.
+struct StreamBases {
+  long long b[kMaxBands + 1];
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Last index i in [0, n) with a[i] <= v, for a non-decreasing a with
+// a[0] <= v.
+__device__ __forceinline__ int last_le(const int* a, int n, int v) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (a[mid] <= v) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// -- segment sum --------------------------------------------------------
+
+// V consecutive elements of T as one load: 16 bytes, or one element.
+template <typename T, int V> struct Vec;
+template <> struct Vec<float, 4> { using raw = float4; };
+template <> struct Vec<__nv_bfloat16, 8> { using raw = uint4; };
+template <> struct Vec<float, 1> { using raw = float; };
+template <> struct Vec<__nv_bfloat16, 1> { using raw = __nv_bfloat16; };
+
+__device__ __forceinline__ void accumulate(float (&a)[4], const float4& r) {
+  a[0] += r.x;
+  a[1] += r.y;
+  a[2] += r.z;
+  a[3] += r.w;
+}
+__device__ __forceinline__ void accumulate(float (&a)[8], const uint4& r) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // bf16 -> float32 is exact: the high half
+    a[2 * i] += __uint_as_float(w[i] << 16);
+    a[2 * i + 1] += __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void accumulate(float (&a)[1], float r) {
+  a[0] += r;
+}
+__device__ __forceinline__ void accumulate(float (&a)[1], __nv_bfloat16 r) {
+  a[0] += __bfloat162float(r);
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* dst, const float (&a)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(dst + i) =
+          make_float4(a[i], a[i + 1], a[i + 2], a[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) dst[i] = a[i];
+  }
+}
+
+struct Layout {
+  const int* bounds;  // [K, n_tiles + 1]
+  const int* offs2d;  // [n_tiles, K, 128]
+  const int* prefix;  // [n_tiles * 128 + 1], the virtual order's row starts
+  int K;
+  int n_tiles;
+
+  // [s, e): row v's segment in stream k
+  __device__ __forceinline__ void segment(int v, int k, int& s,
+                                          int& e) const {
+    const int t = v / kRowTile, r = v % kRowTile;
+    const int* off = offs2d + (static_cast<size_t>(t) * K + k) * kRowTile;
+    s = off[r];
+    e = r + 1 < kRowTile
+            ? off[r + 1]
+            : bounds[static_cast<size_t>(k) * (n_tiles + 1) + t + 1];
+  }
+};
+
+// A walker's place in the virtual order: slot j of stream k, in row v's
+// segment, which ends at e.
+struct Cursor {
+  int v, k, j, e;
+};
+
+// To the first slot of the next non-empty segment; the caller knows that
+// one remains.  Rows with no slot are stepped over one by one for a few
+// rows, then by binary search (the star graph's ghost row lies 100K empty
+// rows past its hub).
+__device__ __forceinline__ void next_segment(const Layout& L, Cursor& c,
+                                             int n_rows) {
+  do {
+    if (++c.k == L.K) {
+      c.k = 0;
+      ++c.v;
+      for (int i = 0; i < kRowSteps && L.prefix[c.v + 1] == L.prefix[c.v];
+           ++i)
+        ++c.v;
+      if (L.prefix[c.v + 1] == L.prefix[c.v])
+        c.v = last_le(L.prefix, n_rows, L.prefix[c.v]);
+    }
+    L.segment(c.v, c.k, c.j, c.e);
+  } while (c.j == c.e);
+}
+
+// A finished row's sums: to out when the row lies inside this chunk
+// [start, stop), else to the walker's carry (side 0: the row began before
+// the chunk; side 1: it goes on past it).
+template <int V>
+__device__ __forceinline__ void flush(const Layout& L, float* out,
+                                      float* carry, int row,
+                                      const float (&acc)[V], long long start,
+                                      long long stop, int walker, int F,
+                                      int c0) {
+  const int p0 = L.prefix[row], p1 = L.prefix[row + 1];
+  float* dst;
+  if (p0 >= start && p1 <= stop) {
+    dst = out + static_cast<size_t>(row) * F;
+  } else {
+    dst = carry + (static_cast<size_t>(walker) * 2 + (p0 < start ? 0 : 1)) * F;
+  }
+  store<V>(dst + c0, acc);
+}
+
+// Slots a walker has in flight: 4 float32 or 8 bf16 rows of 16 bytes a
+// lane, the faster of 4, 8 and 16 in a sweep on the H100 at rmat16 and
+// rmat18 (8 float32 loads take enough registers to halve the resident
+// warps).
+template <typename T>
+constexpr int kBatch = sizeof(T) == 4 ? 4 : 8;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSumThreads)
+banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
+                          const Layout L, float* __restrict__ out,
+                          float* __restrict__ carry, int F, int G, int chunk,
+                          int n_walkers) {
+  using Raw = typename Vec<T, V>::raw;
+  const int walker = blockIdx.x * (kSumThreads / G) + threadIdx.x / G;
+  const int c0 = (blockIdx.y * G + threadIdx.x % G) * V;  // first column
+  const int n_rows = L.n_tiles * kRowTile;
+  const int total = L.prefix[n_rows];
+  const long long start = static_cast<long long>(walker) * chunk;
+  if (walker >= n_walkers || start >= total) return;
+  const long long stop = start + chunk;
+  const int end = static_cast<int>(stop < total ? stop : total);
+  const bool lane_on = c0 < F;
+
+  // the row that holds slot `start`, then its band and slot
+  Cursor c;
+  c.v = last_le(L.prefix, n_rows, static_cast<int>(start));
+  int o = static_cast<int>(start) - L.prefix[c.v];
+  for (c.k = 0;; ++c.k) {
+    L.segment(c.v, c.k, c.j, c.e);
+    if (o < c.e - c.j) break;
+    o -= c.e - c.j;
+  }
+  c.j += o;
+
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  int row = c.v;
+  constexpr int B = kBatch<T>;
+  for (int base = static_cast<int>(start); base < end; base += B) {
+    const int n = min(B, end - base);
+    const Raw* src[B];
+    int rows[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (u < n) {
+        if (c.j == c.e) next_segment(L, c, n_rows);
+        src[u] = reinterpret_cast<const Raw*>(
+            static_cast<const T*>(msgs.p[c.k]) +
+            static_cast<size_t>(c.j) * F + c0);
+        rows[u] = c.v;
+        ++c.j;
+      }
+    }
+    Raw val[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      if (u < n && lane_on) val[u] = __ldg(src[u]);
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (u < n) {
+        if (rows[u] != row) {
+          if (lane_on)
+            flush<V>(L, out, carry, row, acc, start, stop, walker, F, c0);
+          row = rows[u];
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+        }
+        if (lane_on) accumulate(acc, val[u]);
+      }
+    }
+  }
+  if (lane_on) flush<V>(L, out, carry, row, acc, start, stop, walker, F, c0);
+}
+
+// The rows the walkers did not write: a row with no slot gets zeros; a row
+// that crosses chunk edges gets its carries added in chunk order.  A warp
+// per row: `lanes` lanes (a power of two) cover F, V columns each, and the
+// warp's 32 / lanes groups of them split a row's later carries into
+// consecutive runs (the rmat16 hub has ~200 at F = 32).  Each group adds
+// its run in order, kFixBatch loads in flight; then, in group order, the
+// runs' sums are added to side 1 of the row's first chunk.
+template <int V>
+__global__ void __launch_bounds__(kWarp * kFixWarps)
+banded_fixup_kernel(const int* __restrict__ prefix,
+                    const float* __restrict__ carry, float* __restrict__ out,
+                    int n_rows, int F, int chunk, int lanes) {
+  const int lane = threadIdx.x % kWarp;
+  const int groups = kWarp / lanes, group = lane / lanes;
+  const int c_lane = (lane % lanes) * V;
+  for (int v = blockIdx.x * kFixWarps + threadIdx.x / kWarp; v < n_rows;
+       v += gridDim.x * kFixWarps) {  // v is the same for the whole warp
+    const int p0 = prefix[v], p1 = prefix[v + 1];
+    float* o = out + static_cast<size_t>(v) * F;
+    if (p0 == p1) {
+      const float zero[V] = {};
+      for (int c = lane * V; c < F; c += kWarp * V) store<V>(o + c, zero);
+      continue;
+    }
+    const int b0 = p0 / chunk, b1 = (p1 - 1) / chunk;
+    if (b0 == b1) continue;  // the walker of chunk b0 wrote it
+    const int per = (b1 - b0 + groups - 1) / groups;
+    const int lo = b0 + 1 + group * per;
+    const int hi = min(lo + per, b1 + 1);
+    for (int c0 = 0; c0 < F; c0 += lanes * V) {  // the same trip count
+      const int c = c0 + c_lane;                 // for every lane
+      const bool on = c < F;
+      float part[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) part[i] = 0.0f;
+      for (int b = lo; on && b < hi; b += kFixBatch) {
+        float t[kFixBatch][V];
+#pragma unroll
+        for (int u = 0; u < kFixBatch; ++u)
+          if (b + u < hi) {
+            const float* cb = carry + static_cast<size_t>(b + u) * 2 * F + c;
+#pragma unroll
+            for (int i = 0; i < V; ++i) t[u][i] = cb[i];
+          }
+#pragma unroll
+        for (int u = 0; u < kFixBatch; ++u)
+          if (b + u < hi) {
+#pragma unroll
+            for (int i = 0; i < V; ++i) part[i] += t[u][i];
+          }
+      }
+      float acc[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i)
+        acc[i] = on ? carry[(static_cast<size_t>(b0) * 2 + 1) * F + c + i]
+                    : 0.0f;
+      for (int g = 0; g < groups; ++g) {
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          acc[i] += __shfl_sync(0xffffffffu, part[i],
+                                g * lanes + lane % lanes);
+      }
+      if (on && group == 0) store<V>(o + c, acc);
+    }
+  }
+}
+
+template <typename T, int V>
+void launch_sum(const StreamPtrs& ptrs, const Layout& L, float* out,
+                float* carry, int F, int G, int chunk, int n_walkers,
+                int fix_lanes, cudaStream_t s) {
+  const int per_block = kSumThreads / G;
+  if (n_walkers > 0) {
+    const dim3 grid((n_walkers + per_block - 1) / per_block,
+                    (F + G * V - 1) / (G * V));
+    banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+        ptrs, L, out, carry, F, G, chunk, n_walkers);
+  }
+  const int n_rows = L.n_tiles * kRowTile;
+  const int rows_blocks = (n_rows + kFixWarps - 1) / kFixWarps;
+  const int blocks = rows_blocks < kFixBlocks ? rows_blocks : kFixBlocks;
+  constexpr int VF = V % 4 == 0 ? 4 : 1;  // float32 carries
+  banded_fixup_kernel<VF><<<blocks, kWarp * kFixWarps, 0, s>>>(
+      L.prefix, carry, out, n_rows, F, chunk, fix_lanes);
+}
+
+// -- SDDMM --------------------------------------------------------------
+
 // Banded SDDMM, the second entry point below:
 //   dw[base_k + j] = <y[dst(k, j), :], msgs[k][j, :]>
 // for every slot j < bounds[k, n_tiles] of band k, where dst(k, j) is the
@@ -55,74 +418,6 @@
 // is still read once and no head is padded or copied (the TPU twin pads
 // each head to 128 lanes and runs H passes).  H = 1 is the form above,
 // with the same order of operations.
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kRowTile = 128;
-constexpr int kCols = 32;      // columns per block (threadIdx.x)
-constexpr int kRowGroups = 8;  // warps per block (threadIdx.y)
-constexpr int kMaxBands = 128;
-constexpr int kWarp = 32;
-constexpr int kSlotsPerWarp = 32;  // one output slot per lane
-constexpr int kSddmmWarps = 8;     // warps per block of the SDDMM
-constexpr int kColsPerLane = 8;    // y values a lane keeps in registers
-constexpr int kColBlock = kWarp * kColsPerLane;  // columns per pass
-
-enum { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
-
-// The K stream pointers travel by value in the kernel's parameters.
-struct StreamPtrs {
-  const void* p[kMaxBands];
-};
-
-// Flat slot index of each band's first slot; base[K] is the total.
-struct StreamBases {
-  long long b[kMaxBands + 1];
-};
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kCols * kRowGroups)
-banded_segment_sum_kernel(StreamPtrs msgs, const int* __restrict__ bounds,
-                          const int* __restrict__ offs2d,
-                          float* __restrict__ out, int K, int n_tiles, int F) {
-  const int t = blockIdx.x;
-  const int c = blockIdx.y * kCols + threadIdx.x;
-  if (c >= F) return;
-  for (int r = threadIdx.y; r < kRowTile; r += kRowGroups) {
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const int* off = offs2d + (static_cast<size_t>(t) * K + k) * kRowTile;
-      const int s = off[r];
-      const int e = (r + 1 < kRowTile)
-                        ? off[r + 1]
-                        : bounds[static_cast<size_t>(k) * (n_tiles + 1) + t + 1];
-      const T* m = static_cast<const T*>(msgs.p[k]) + c;
-#pragma unroll 4
-      for (int j = s; j < e; ++j) acc += to_f32(m[static_cast<size_t>(j) * F]);
-    }
-    out[(static_cast<size_t>(t) * kRowTile + r) * F + c] = acc;
-  }
-}
-
-// Last index i in [0, n) with a[i] <= v, for a non-decreasing a with
-// a[0] <= v.
-__device__ __forceinline__ int last_le(const int* a, int n, int v) {
-  int lo = 0, hi = n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (a[mid] <= v) lo = mid; else hi = mid - 1;
-  }
-  return lo;
-}
 
 template <typename TM, typename TY>
 __global__ void __launch_bounds__(kWarp * kSddmmWarps)
@@ -215,31 +510,42 @@ void launch_sddmm(const StreamPtrs& ptrs, const StreamBases& bases,
 
 extern "C" int banded_max_bands() { return kMaxBands; }
 
-// msg_ptrs: host array of K device pointers.  Returns cudaGetLastError()
-// after the launch (0 on success), or cudaErrorInvalidValue for bad
-// arguments.
-extern "C" int banded_segment_sum_launch(const void* const* msg_ptrs, int K,
-                                         const void* bounds,
-                                         const void* offs2d, void* out,
-                                         int n_tiles, int F, int dtype,
-                                         void* stream) {
-  if (K < 1 || K > kMaxBands || n_tiles < 0 || F < 1)
+// msg_ptrs: host array of K device pointers.  prefix: int32 [n_tiles * 128
+// + 1], the row starts of the virtual order (row_prefix).  carry: float32
+// [n_walkers, 2, F] scratch, n_walkers >= ceil(prefix[-1] / chunk).
+// vector: nonzero when F * element size is a multiple of 16 and every
+// stream is 16-byte aligned.  lanes, fix_lanes: a walker's lanes and the
+// fix-up's lanes per row, powers of two up to 32 (the wrapper's
+// kernel_plan).  Two launches: the walkers, then the fix-up.  Returns
+// cudaGetLastError() after them (0 on success), or cudaErrorInvalidValue
+// for bad arguments.
+extern "C" int banded_segment_sum_launch(
+    const void* const* msg_ptrs, int K, const void* bounds,
+    const void* offs2d, const void* prefix, void* out, void* carry,
+    int n_tiles, int F, int dtype, int vector, int lanes, int chunk,
+    int n_walkers, int fix_lanes, void* stream) {
+  const auto lanes_ok = [](int x) {
+    return x >= 1 && x <= kWarp && (x & (x - 1)) == 0;
+  };
+  if (K < 1 || K > kMaxBands || n_tiles < 0 || F < 1 || chunk < 1 ||
+      n_walkers < 0 || !lanes_ok(lanes) || !lanes_ok(fix_lanes))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   StreamPtrs ptrs = {};
   for (int k = 0; k < K; ++k) ptrs.p[k] = msg_ptrs[k];
-  const dim3 grid(n_tiles, (F + kCols - 1) / kCols);
-  const dim3 block(kCols, kRowGroups);
+  const Layout L = {static_cast<const int*>(bounds),
+                    static_cast<const int*>(offs2d),
+                    static_cast<const int*>(prefix), K, n_tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* b = static_cast<const int*>(bounds);
-  const int* o = static_cast<const int*>(offs2d);
-  float* y = static_cast<float*>(out);
+  float* o = static_cast<float*>(out);
+  float* c = static_cast<float*>(carry);
+  const int G = lanes, C = chunk, W = n_walkers, FL = fix_lanes;
   if (dtype == DT_FLOAT32) {
-    banded_segment_sum_kernel<float><<<grid, block, 0, s>>>(ptrs, b, o, y, K,
-                                                            n_tiles, F);
+    if (vector) launch_sum<float, 4>(ptrs, L, o, c, F, G, C, W, FL, s);
+    else launch_sum<float, 1>(ptrs, L, o, c, F, G, C, W, FL, s);
   } else if (dtype == DT_BFLOAT16) {
-    banded_segment_sum_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        ptrs, b, o, y, K, n_tiles, F);
+    if (vector) launch_sum<__nv_bfloat16, 8>(ptrs, L, o, c, F, G, C, W, FL, s);
+    else launch_sum<__nv_bfloat16, 1>(ptrs, L, o, c, F, G, C, W, FL, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mini_tpu_torch.utils.device import resolve_device
+
 ROW_TILE = 128  # output rows per kernel tile
 EDGE_CHUNK = 512  # per-band stream padding multiple
 FAST_TABLE_BYTES = 16 * 1024 * 1024  # band height: one band's feature table
@@ -77,15 +79,18 @@ class BandedLayout:
     def total_padded(self) -> int:
         return int(sum(len(i) for i in self.ids))
 
-    def dev(self, device="cpu") -> dict:
-        """The layout's arrays as tensors on ``device`` (cached).
+    def dev(self, device=None) -> dict:
+        """The layout's arrays as tensors on ``device`` (``None``: the
+        card), cached with the layout, so they are dropped with its graph.
 
         ``offs2d`` is transposed to the kernel-facing ``[n_tiles, K,
         ROW_TILE]``: one tile's offsets for every band are contiguous.
         ``seg[k]`` is the segment (row) of every slot of band ``k``, pad
         slots included (they take the last row): the result of JAX's
-        ``expand_to_edges`` over ``offsets[k]``, as gather indices."""
-        device = torch.device(device)
+        ``expand_to_edges`` over ``offsets[k]``, as gather indices.
+        ``row_prefix`` is the segment sum's schedule (:func:`row_prefix`),
+        built on the device once."""
+        device = resolve_device(device)
         key = str(device)
         if key not in self._dev:
             inv = np.empty_like(self.banded_rank)
@@ -101,11 +106,13 @@ class BandedLayout:
             def t(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+            bounds, offs2d = t(self.bounds), t(self.offs2d.transpose(1, 0, 2))
             self._dev[key] = dict(
                 ids=[t(i) for i in self.ids],
                 weights=[t(w) for w in self.weights],
-                bounds=t(self.bounds),
-                offs2d=t(self.offs2d.transpose(1, 0, 2)),
+                bounds=bounds,
+                offs2d=offs2d,
+                row_prefix=row_prefix(bounds, offs2d),
                 banded_rank=t(self.banded_rank),
                 inv_rank=t(inv),
                 offsets=[t(o) for o in self.offsets],
@@ -160,6 +167,25 @@ class BandedLayout:
             band_vals = torch.cat(list(band_vals))
         d = self.dev(band_vals.device)
         return apply_fixed_perm(d["inv_rank"], band_vals)[: self.m_pad]
+
+
+def row_prefix(bounds: torch.Tensor, offs2d: torch.Tensor) -> torch.Tensor:
+    """The banded segment sum's schedule: int32 ``[n_pad + 1]``, entry
+    ``v`` the number of real slots of rows ``< v`` over all K bands.
+
+    The kernel (``csrc/spmm_banded.cu``) walks the slots in this row-major
+    virtual order (row v's segment in band 0, then band 1, ...) cut into
+    equal chunks, so a hub row spans many chunks.  Built from the layout's
+    kernel arrays (``bounds [K, n_tiles+1]``, ``offs2d [n_tiles, K, 128]``)
+    on their device, with no host sync."""
+    starts = offs2d.long()
+    ends = torch.cat([starts[:, :, 1:], bounds.t()[1:, :, None].long()],
+                     dim=2)
+    lens = (ends - starts).sum(1).reshape(-1)  # [n_pad], all bands
+    out = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
+                      device=lens.device)
+    torch.cumsum(lens, 0, out=out[1:])
+    return out.to(torch.int32)
 
 
 def build_banded_layout(

@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mini_tpu_torch.utils.device import resolve_device
+
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -180,8 +182,11 @@ class GraphSlice:
         hg: HostGraph,
         n_multiple: int = 128,
         m_multiple: int = 1024,
-        device="cpu",
+        device=None,
     ) -> "GraphSlice":
+        """The padded device graph of ``hg`` on ``device`` (``None``: the
+        card; ``"cpu"`` for the plain torch versions)."""
+        device = resolve_device(device)
         n, m = hg.n, hg.m
         n_pad = _round_up(n + 1, n_multiple)
         m_pad = _round_up(max(m, 1), m_multiple)

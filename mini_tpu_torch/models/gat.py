@@ -59,6 +59,7 @@ from mini_tpu_torch.ops.spmm import (
     banded_heads_segment_sum,
     spmm,
 )
+from mini_tpu_torch.utils.device import resolve_device
 
 
 def _head_pad(n_heads: int, d: int) -> int:
@@ -142,7 +143,8 @@ def _gat_layer_banded(
         msgs.append((xg.reshape(mk, H, d_pad)
                      * w[:, :, None].to(xg.dtype)).reshape(mk, F))
     out = banded_segment_sum(dev["bounds"], dev["offs2d"], msgs,
-                             precision="split", edge_chunk=layout.edge_chunk)
+                             precision="split", edge_chunk=layout.edge_chunk,
+                             row_prefix=dev["row_prefix"])
     heads, denoms = [], []
     for hd in range(H):
         denom = out[:, hd * d_pad + d].clamp(min=1e-30)
@@ -348,12 +350,13 @@ def gat_init(
     dims: Sequence[int],
     heads: int = 2,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> list[dict]:
     """Layers project to dims[i+1] per head; hidden layers concat heads,
     the final layer averages them.  Glorot-uniform draws from
     ``generator`` (a CPU generator; the tensors then move to
-    ``device``)."""
+    ``device``, ``None`` for the card)."""
+    device = resolve_device(device)
     params = []
     for i in range(len(dims) - 1):
         fan_in = dims[i] * (heads if i > 0 else 1)

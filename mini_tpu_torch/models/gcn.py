@@ -28,6 +28,7 @@ from mini_tpu_torch.graph.banded import get_layout
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.models._sgd import init_opt, sgd_momentum_step
 from mini_tpu_torch.ops.spmm import spmm
+from mini_tpu_torch.utils.device import resolve_device
 
 # H @ W in full float32, as the JAX reference computes it: no TF32 on the
 # card (PyTorch's default; pinned here so a caller's setting cannot change
@@ -86,11 +87,12 @@ def gcn_init(
     generator: torch.Generator,
     dims: Sequence[int],
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> list[dict]:
     """Glorot-uniform layer parameters for dims[0] -> ... -> dims[-1],
     drawn from ``generator`` (a CPU generator; the tensors then move to
-    ``device``)."""
+    ``device``, ``None`` for the card)."""
+    device = resolve_device(device)
     params = []
     for i in range(len(dims) - 1):
         fan_in, fan_out = dims[i], dims[i + 1]
@@ -105,10 +107,11 @@ def gcn_init(
     return params
 
 
-def params_from_jax(params_np: list[dict], device="cpu") -> list[dict]:
+def params_from_jax(params_np: list[dict], device=None) -> list[dict]:
     """The JAX package's GCN parameters (a list of ``{"w", "b"}`` dicts of
     arrays, e.g. from ``mini_tpu.models.gcn.gcn_init`` via
-    ``np.asarray``) as torch tensors on ``device``."""
+    ``np.asarray``) as torch tensors on ``device`` (``None``: the card)."""
+    device = resolve_device(device)
     return [
         {k: torch.from_numpy(np.array(v)).to(device) for k, v in p.items()}
         for p in params_np

@@ -19,17 +19,19 @@ from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.models._sgd import init_opt, sgd_momentum_step
 from mini_tpu_torch.models.gcn import params_from_jax  # noqa: F401
 from mini_tpu_torch.ops.spmm import spmm
+from mini_tpu_torch.utils.device import resolve_device
 
 
 def sage_init(
     generator: torch.Generator,
     dims: Sequence[int],
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> list[dict]:
     """Glorot-uniform ``w`` ``[2 dims[i], dims[i+1]]`` and zero ``b`` per
     layer, drawn from ``generator`` (a CPU generator; the tensors then
-    move to ``device``)."""
+    move to ``device``, ``None`` for the card)."""
+    device = resolve_device(device)
     params = []
     for i in range(len(dims) - 1):
         fan_in = 2 * dims[i]

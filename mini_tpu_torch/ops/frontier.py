@@ -12,6 +12,8 @@ import dataclasses
 
 import torch
 
+from mini_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Frontier:
@@ -20,12 +22,16 @@ class Frontier:
     mask: torch.Tensor  # bool[n_pad]
 
     @staticmethod
-    def empty(n_pad: int, device="cpu") -> "Frontier":
-        return Frontier(torch.zeros(n_pad, dtype=torch.bool, device=device))
+    def empty(n_pad: int, device=None) -> "Frontier":
+        """No vertex set, on ``device`` (``None``: the card)."""
+        return Frontier(torch.zeros(n_pad, dtype=torch.bool,
+                                    device=resolve_device(device)))
 
     @staticmethod
-    def full(n_pad: int, n: int, device="cpu") -> "Frontier":
-        return Frontier(torch.arange(n_pad, device=device) < n)
+    def full(n_pad: int, n: int, device=None) -> "Frontier":
+        """The ``n`` real vertices, on ``device`` (``None``: the card)."""
+        return Frontier(torch.arange(n_pad, device=resolve_device(device))
+                        < n)
 
     @staticmethod
     def from_indices(indices: torch.Tensor, n_pad: int) -> "Frontier":

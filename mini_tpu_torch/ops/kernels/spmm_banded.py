@@ -23,6 +23,15 @@ accumulate in float32.
 accumulate of the inputs as given; ``"fast"`` first rounds float32
 messages (and the SDDMM's ``y``) to bfloat16, as the twins' fast paths do.
 
+The segment-sum kernel walks the slots in a row-major virtual order cut
+into equal chunks (:func:`kernel_plan`), with per-chunk carries for
+the rows that cross a chunk edge and a fix-up launch that adds them (see
+``csrc/spmm_banded.cu``).  Its schedule is the row prefix of that order
+(``graph.banded.row_prefix``), cached by ``BandedLayout.dev()`` as
+``row_prefix``; without it the wrapper builds it on the device in the
+call.  :func:`banded_segment_sum_scheduled_plain` repeats the kernel's
+schedule in plain torch, with its order of float32 additions.
+
 Each public wrapper dispatches by device: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 """
@@ -30,21 +39,26 @@ version; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from mini_tpu_torch.graph.banded import EDGE_CHUNK, ROW_TILE
+from mini_tpu_torch.graph.banded import row_prefix as _row_prefix
 from mini_tpu_torch.ops.kernels import _build, refuse_grad
 
 PRECISIONS = ("split", "highest", "fast")
+MIN_CHUNK = 128  # fewest slots of the virtual order per walker
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
-    # (msg_ptrs, K, bounds, offs2d, out, n_tiles, F, dtype, stream) -> error
+    # (msg_ptrs, K, bounds, offs2d, prefix, out, carry, n_tiles, F, dtype,
+    #  vector, lanes, chunk, n_walkers, fix_lanes, stream) -> error
     "banded_segment_sum_launch": (
         [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p],
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     ),
     # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, H,
@@ -164,6 +178,144 @@ def banded_segment_sum_plain(
     return out.to(torch.float32)
 
 
+def _vector_ok(msgs) -> bool:
+    """The kernel's 16-byte loads: every row a whole number of 16-byte
+    vectors and every stream 16-byte aligned."""
+    return (msgs[0].shape[1] * msgs[0].element_size()) % 16 == 0 and all(
+        m.data_ptr() % 16 == 0 for m in msgs)
+
+
+def _lanes(F: int, per_lane: int) -> int:
+    """The fewest lanes, a power of two up to a warp's 32, that cover F
+    columns at ``per_lane`` columns a lane."""
+    lanes = 1
+    while lanes < 32 and lanes * per_lane < F:
+        lanes *= 2
+    return lanes
+
+
+def kernel_plan(F: int, element_size: int, vector: bool) -> tuple:
+    """``(lanes, chunk, fix_lanes)`` of the segment-sum kernel for rows of
+    F elements.  A walker's lanes cover F in 16-byte vectors (single
+    elements off the vector path); its chunk is ``16 lanes`` slots, at
+    least ``MIN_CHUNK``, enough walkers to fill the card whatever F.  The
+    fix-up's lanes cover F in float32 vectors of 4 (or 1), and its warp's
+    ``32 / fix_lanes`` lane groups split a long row's carries."""
+    lanes = _lanes(F, 16 // element_size if vector else 1)
+    return lanes, max(MIN_CHUNK, 16 * lanes), _lanes(F, 4 if vector else 1)
+
+
+def banded_segment_sum_scheduled_plain(
+    bounds: torch.Tensor,
+    offs2d: torch.Tensor,
+    msgs: Sequence[torch.Tensor],
+    precision: str = "split",
+    edge_chunk: int = EDGE_CHUNK,
+    row_prefix: Optional[torch.Tensor] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """The segment-sum kernel's schedule in plain torch: the same result as
+    ``csrc/spmm_banded.cu`` bit for bit, for the CPU tests of the partition
+    and for the card's check of the kernel.
+
+    Every real slot gets its place in the virtual order (row by row, band
+    0 to K-1 in a row); chunk ``b`` holds places ``[b chunk, (b+1)
+    chunk)``.  A slot adds into its row when the row lies inside one chunk,
+    else into carry ``(b, 0)`` (its row began in an earlier chunk) or ``(b,
+    1)`` (it goes on past the chunk).  Each of these sums is taken in
+    float32 in the virtual order, as a walker adds.  The fix-up splits a
+    crossing row's later carries into ``groups`` consecutive runs (the
+    fix-up warp's lane groups), sums each run in chunk order, and adds the
+    runs' sums in order to side 1 of the row's first chunk.  Rows with no
+    slot are 0.  ``chunk`` defaults to the kernel's (:func:`kernel_plan`).
+    """
+    msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
+    _, kernel_chunk, fix_lanes = kernel_plan(
+        msgs[0].shape[1], msgs[0].element_size(), _vector_ok(msgs))
+    chunk = kernel_chunk if chunk is None else chunk
+    groups = 32 // fix_lanes
+    device = msgs[0].device
+    K, F = len(msgs), msgs[0].shape[1]
+    n_rows = offs2d.shape[0] * ROW_TILE
+    prefix = (_row_prefix(bounds, offs2d) if row_prefix is None
+              else row_prefix).long()
+    total = int(prefix[-1])
+    out = torch.zeros(n_rows, F, dtype=torch.float32, device=device)
+    if total == 0:
+        return out
+    # per (row, band): segment start, and the slots of the row's earlier
+    # bands
+    starts = offs2d.long().permute(0, 2, 1).reshape(n_rows, K)
+    ends = torch.cat([offs2d.long()[:, :, 1:],
+                      bounds.t()[1:, :, None].long()], dim=2)
+    lens = ends.permute(0, 2, 1).reshape(n_rows, K) - starts
+    before = torch.cumsum(lens, 1) - lens
+    place, rows, vals = [], [], []
+    for k, m in enumerate(msgs):
+        seg = _segment_ids(bounds, offs2d, k)
+        j = torch.arange(seg.numel(), device=device)
+        place.append(prefix[seg] + before[seg, k] + j - starts[seg, k])
+        rows.append(seg)
+        vals.append(m[: seg.numel()])
+    order = torch.empty(total, dtype=torch.long, device=device)
+    order[torch.cat(place)] = torch.arange(total, device=device)
+    rows = torch.cat(rows)[order]
+    vals = torch.cat(vals)[order].float()
+
+    # each place's sum: its row, or a carry (n_rows + 2 b + side)
+    b = torch.arange(total, device=device) // chunk
+    p0, p1 = prefix[rows], prefix[rows + 1]
+    inside = p0 // chunk == (p1 - 1) // chunk
+    dest = torch.where(inside, rows, n_rows + 2 * b + (p0 >= b * chunk))
+    # a sum's places are consecutive: run r adds vals[run_start[r]:...] in
+    # order, step i adding the i-th place of every run longer than i
+    new = torch.ones(total, dtype=torch.bool, device=device)
+    new[1:] = dest[1:] != dest[:-1]
+    run_start = torch.nonzero(new)[:, 0]
+    run_len = torch.diff(run_start, append=run_start.new_tensor([total]))
+    by_len = torch.argsort(run_len, descending=True, stable=True)
+    run_start, run_len = run_start[by_len], run_len[by_len]
+    n_longer = _count_longer(run_len)
+    acc = torch.zeros(run_start.shape[0], F, dtype=torch.float32,
+                      device=device)
+    for i, n in enumerate(n_longer):
+        acc[:n] += vals[run_start[:n] + i]
+    n_chunks = -(-total // chunk)
+    sums = torch.zeros(n_rows + 2 * n_chunks, F, dtype=torch.float32,
+                       device=device)
+    sums[dest[run_start]] = acc
+    out = sums[:n_rows]
+    carry = sums[n_rows:].reshape(n_chunks, 2, F)
+
+    # the fix-up: side 0 of the later chunks in `groups` runs, each summed
+    # in order, then added in order to side 1 of the row's first chunk
+    p0, p1 = prefix[:-1], prefix[1:]
+    b0 = p0 // chunk
+    span = torch.where(p1 > p0, (p1 - 1) // chunk - b0, 0)
+    crossing = torch.nonzero(span > 0)[:, 0]
+    if crossing.numel():
+        cb0, cspan = b0[crossing], span[crossing]
+        per = (cspan + groups - 1) // groups
+        fix = carry[cb0, 1].clone()
+        for g in range(groups):
+            lo = cb0 + 1 + g * per
+            n = torch.clamp(torch.minimum(per, cb0 + cspan + 1 - lo), min=0)
+            part = torch.zeros_like(fix)
+            for step in range(int(n.max())):
+                on = n > step
+                part[on] += carry[lo[on] + step, 0]
+            fix += part
+        out[crossing] = fix
+    return out
+
+
+def _count_longer(lengths: torch.Tensor) -> list:
+    """For non-increasing ``lengths``: at step i, how many are > i."""
+    desc = lengths.cpu().numpy()
+    steps = np.arange(int(desc[0]))
+    return np.searchsorted(-desc, -steps, side="left").tolist()
+
+
 def segment_sum_cuda(
     name: str,
     bounds: torch.Tensor,
@@ -171,10 +323,12 @@ def segment_sum_cuda(
     msgs: Sequence[torch.Tensor],
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
+    row_prefix: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch the segment-sum kernel on CUDA tensors (see module doc).
-    ``name`` is the calling wrapper's, for errors; the caller counts the
-    launch."""
+    """Launch the segment-sum kernel on CUDA tensors (see module doc):
+    the walkers and the fix-up.  ``row_prefix`` is the cached schedule;
+    without it this call builds it on the device.  ``name`` is the calling
+    wrapper's, for errors; the caller counts the launch."""
     device = msgs[0].device
     refuse_grad(name, *msgs)
     msgs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
@@ -182,17 +336,30 @@ def segment_sum_cuda(
     _check_cuda(bounds, offs2d, msgs, device)
     bounds = bounds.contiguous()
     offs2d = offs2d.contiguous()
+    n_tiles = offs2d.shape[0]
+    if row_prefix is None:
+        row_prefix = _row_prefix(bounds, offs2d)
+    if (row_prefix.device != device or row_prefix.dtype != torch.int32
+            or tuple(row_prefix.shape) != (n_tiles * ROW_TILE + 1,)):
+        raise ValueError(f"row_prefix must be int32 [{n_tiles * ROW_TILE + 1}]"
+                         f" on {device}")
+    row_prefix = row_prefix.contiguous()
     K = len(msgs)
     lib = _load(K)
-    n_tiles = offs2d.shape[0]
     F = msgs[0].shape[1]
+    vector = _vector_ok(msgs)
+    lanes, chunk, fix_lanes = kernel_plan(F, msgs[0].element_size(), vector)
+    n_walkers = -(-sum(int(m.shape[0]) for m in msgs) // chunk)
     out = torch.empty(n_tiles * ROW_TILE, F, dtype=torch.float32,
                       device=device)
+    carry = torch.empty(n_walkers * 2 * F, dtype=torch.float32,
+                        device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
     rc = lib.banded_segment_sum_launch(
-        ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), out.data_ptr(),
-        n_tiles, F, _DTYPE_CODE[msgs[0].dtype],
-        torch.cuda.current_stream(device).cuda_stream,
+        ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), row_prefix.data_ptr(),
+        out.data_ptr(), carry.data_ptr(), n_tiles, F,
+        _DTYPE_CODE[msgs[0].dtype], int(vector), lanes, chunk, n_walkers,
+        fix_lanes, torch.cuda.current_stream(device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -205,15 +372,18 @@ def banded_segment_sum(
     msgs: Sequence[torch.Tensor],
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
+    row_prefix: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sum K segment-sorted message streams into float32 ``[n_tiles*128,
     F]`` rows (see module doc).  On CUDA tensors this launches
-    ``csrc/spmm_banded.cu``."""
+    ``csrc/spmm_banded.cu`` with ``row_prefix`` as its schedule
+    (``BandedLayout.dev()["row_prefix"]``; built in the call when None);
+    on CPU tensors it is the plain version, which needs no schedule."""
     if _device_of(msgs, "banded_segment_sum").type == "cpu":
         return banded_segment_sum_plain(bounds, offs2d, msgs, precision,
                                         edge_chunk)
     out = segment_sum_cuda("banded_segment_sum", bounds, offs2d, msgs,
-                           precision, edge_chunk)
+                           precision, edge_chunk, row_prefix)
     global launches
     launches += 1
     return out

@@ -9,9 +9,10 @@ float32 or bfloat16, with ``n_pad % 128 == 0`` and ``m_pad % 128 == 0``;
 the result is float32 ``[n_pad, F]``.
 
 On Hopper this is the banded segment sum with one band: ``bounds =
-offsets[::128]``, ``offs2d = offsets[:-1]`` cut into 128-row tiles.  So a
-CUDA tensor launches ``csrc/spmm_banded.cu``'s segment-sum kernel with
-K = 1 (no second source); a CPU tensor takes the plain version.  Unlike
+offsets[::128]``, ``offs2d = offsets[:-1]`` cut into 128-row tiles, and
+its schedule is ``offsets - offsets[0]``.  So a CUDA tensor launches
+``csrc/spmm_banded.cu``'s segment-sum kernel with K = 1 (no second
+source); a CPU tensor takes the plain version.  Unlike
 the twin, any F is taken.
 """
 
@@ -61,8 +62,10 @@ def segment_sum(
     if msgs.device.type != "cuda":
         raise RuntimeError(f"no segment_sum kernel for {msgs.device}")
     bounds, offs2d = _one_band(offsets)
+    # with one band the schedule's row prefix is the offsets from 0
     out = spmm_banded.segment_sum_cuda("segment_sum", bounds, offs2d, [msgs],
-                                       edge_chunk=EDGE_CHUNK)
+                                       edge_chunk=EDGE_CHUNK,
+                                       row_prefix=offsets - offsets[:1])
     global launches
     launches += 1
     return out

@@ -164,7 +164,7 @@ def _apply_banded(x, layout: BandedLayout, w_list, precision, heads=1):
     dev = layout.dev(x.device)
     return banded_segment_sum(
         dev["bounds"], dev["offs2d"], msgs, precision=precision,
-        edge_chunk=layout.edge_chunk,
+        edge_chunk=layout.edge_chunk, row_prefix=dev["row_prefix"],
     )
 
 

@@ -2,9 +2,9 @@
 `tests/test_utils.hxx:168-191`, with warmup, repetition statistics and
 MTEPS reporting).
 
-On a CUDA device each run is timed with CUDA events recorded on the
-current stream around ``fn()``, after a synchronize; on the CPU with the
-host clock.
+On a CUDA device (the default) each run is timed with CUDA events
+recorded on the current stream around ``fn()``, after a synchronize; with
+``device="cpu"`` with the host clock.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from mini_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -33,11 +35,11 @@ def time_fn(
     fn: Callable[[], object],
     warmup: int = 2,
     repeat: int = 5,
-    device="cpu",
+    device=None,
 ) -> Timing:
-    """Time ``fn`` on ``device``: ``warmup`` untimed runs, then ``repeat``
-    timed ones."""
-    device = torch.device(device)
+    """Time ``fn`` on ``device`` (``None``: the card): ``warmup`` untimed
+    runs, then ``repeat`` timed ones."""
+    device = resolve_device(device)
     cuda = device.type == "cuda"
     for _ in range(warmup):
         fn()

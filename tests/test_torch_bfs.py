@@ -29,7 +29,8 @@ def build_case(pkg, name):
 )
 def test_bfs_matches(name):
     hj, ht = build_case(jg, name), build_case(tg, name)
-    gj, gt = jg.GraphSlice.from_host(hj), tg.GraphSlice.from_host(ht)
+    gj = jg.GraphSlice.from_host(hj)
+    gt = tg.GraphSlice.from_host(ht, device="cpu")
     deg = ht.out_degrees + ht.in_degrees
     isolated = np.nonzero(deg == 0)[0]
     assert len(isolated) > 0 or name.startswith("random")
@@ -52,7 +53,7 @@ def test_bfs_matches(name):
 
 def test_bfs_max_iter_and_result_fields():
     ht = build_case(tg, "random")
-    gt = tg.GraphSlice.from_host(ht)
+    gt = tg.GraphSlice.from_host(ht, device="cpu")
     full = bfs(gt, 0)
     assert full.num_iterations > 2
     cut = bfs(gt, 0, max_iter=2)

@@ -33,7 +33,7 @@ def setup(bands, seed=4):
     kw = dict(seed=seed, undirected=True)
     hg = tg.erdos_renyi(n, m, **kw)
     gj = jg.GraphSlice.from_host(jg.erdos_renyi(n, m, **kw))
-    gt = tg.GraphSlice.from_host(hg)
+    gt = tg.GraphSlice.from_host(hg, device="cpu")
     x = np.random.RandomState(seed).rand(gt.n_pad, DIMS[0]).astype(
         np.float32)
     x[hg.n:] = 0
@@ -87,7 +87,7 @@ def _jax_run(bands, attn, mdt, batch_softmax, grads):
 def port_run(monkeypatch, bands, attn, mdt=None, batch_softmax=False):
     hg, _, gt, x, params_np = setup(bands)
     small_bands(monkeypatch, bands)
-    params = tgat.params_from_jax(params_np)
+    params = tgat.params_from_jax(params_np, device="cpu")
     leaves = [{k: v.requires_grad_() for k, v in p.items()} for p in params]
     out = tgat.gat_forward(leaves, gt, torch.from_numpy(x),
                            message_dtype=mdt, batch_softmax=batch_softmax,
@@ -189,7 +189,7 @@ def test_train_steps_match_jax(monkeypatch, attn):
             want.append((float(lj), flat_grads(jax.tree_util.tree_map(
                 np.array, pj)), flat_grads(jax.tree_util.tree_map(
                     np.array, oj))))
-    pt = tgat.params_from_jax(params_np)
+    pt = tgat.params_from_jax(params_np, device="cpu")
     ot = tgat.gat_init_opt(pt)
     batch = (torch.from_numpy(labels), torch.from_numpy(mask))
     for lj, pj, oj in want:
@@ -206,11 +206,11 @@ def test_train_steps_match_jax(monkeypatch, attn):
 def test_train_step_decreases_loss(attn):
     """tests/test_models.py:196-214 on the port's own RNG."""
     hg = tg.erdos_renyi(80, 500, seed=10, undirected=True)
-    gs = tg.GraphSlice.from_host(hg)
+    gs = tg.GraphSlice.from_host(hg, device="cpu")
     x = np.random.RandomState(10).rand(gs.n_pad, 8).astype(np.float32)
     x[hg.n:] = 0
     params = tgat.gat_init(torch.Generator().manual_seed(10), [8, 16, 4],
-                           heads=2)
+                           heads=2, device="cpu")
     opt = tgat.gat_init_opt(params)
     lab = torch.from_numpy(np.random.RandomState(10).randint(0, 4, gs.n_pad))
     msk = torch.arange(gs.n_pad) < hg.n
@@ -227,8 +227,10 @@ def test_init_and_layer_choice(monkeypatch):
     """``gat_init`` shapes and bounds; ``auto`` takes the fused path on
     the CPU and the banded Function only when asked; one head and heads
     with no spare lane fall back to the fused path."""
-    p1 = tgat.gat_init(torch.Generator().manual_seed(3), DIMS, heads=2)
-    p2 = tgat.gat_init(torch.Generator().manual_seed(3), DIMS, heads=2)
+    p1 = tgat.gat_init(torch.Generator().manual_seed(3), DIMS, heads=2,
+                       device="cpu")
+    p2 = tgat.gat_init(torch.Generator().manual_seed(3), DIMS, heads=2,
+                       device="cpu")
     assert [tuple(p["w"].shape) for p in p1] == [(2, 8, 16), (2, 32, 3)]
     assert [tuple(p["a_src"].shape) for p in p1] == [(2, 16), (2, 3)]
     for a, b in zip(p1, p2):
@@ -247,10 +249,12 @@ def test_init_and_layer_choice(monkeypatch):
     tgat.gat_forward(p1, gt, xt, attn="banded")
     assert calls == [1, 1]
     # d = 64 with 2 heads leaves no lane for the denominator
-    wide = tgat.gat_init(torch.Generator().manual_seed(3), [8, 64], heads=2)
+    wide = tgat.gat_init(torch.Generator().manual_seed(3), [8, 64], heads=2,
+                         device="cpu")
     tgat.gat_forward(wide, gt, xt, attn="banded")
     assert calls == [1, 1]
-    one = tgat.gat_init(torch.Generator().manual_seed(3), [8, 16], heads=1)
+    one = tgat.gat_init(torch.Generator().manual_seed(3), [8, 16], heads=1,
+                        device="cpu")
     ref = tgat.gat_forward(one, gt, xt, attn="fused")
     np.testing.assert_allclose(
         tgat.gat_forward(one, gt, xt, attn="banded").detach().numpy(),

@@ -164,7 +164,7 @@ def test_band_gathers_match_jax(monkeypatch, direction, dtype):
     monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", small)
     kw = dict(seed=4, undirected=False, weighted=True)
     gj = jg.GraphSlice.from_host(jg.erdos_renyi(300, 2500, **kw))
-    gt = tg.GraphSlice.from_host(tg.erdos_renyi(300, 2500, **kw))
+    gt = tg.GraphSlice.from_host(tg.erdos_renyi(300, 2500, **kw), device="cpu")
     lj = jbanded.get_layout(gj, direction, row_bytes=512)
     lt = tbanded.get_layout(gt, direction, row_bytes=512)
     assert lt.K == lj.K == 3

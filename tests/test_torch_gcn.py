@@ -31,7 +31,8 @@ def graphs():
     args = (300, 2400)
     kw = dict(seed=0, undirected=True)
     hj, ht = jg.erdos_renyi(*args, **kw), tg.erdos_renyi(*args, **kw)
-    return hj, ht, jg.GraphSlice.from_host(hj), tg.GraphSlice.from_host(ht)
+    return (hj, ht, jg.GraphSlice.from_host(hj),
+            tg.GraphSlice.from_host(ht, device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -71,7 +72,7 @@ def test_gcn_forward_matches(setup, monkeypatch, impl, bands):
         monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", 128 * 128 * 4)
     norm = gcn_normalize(gt)
     assert len(norm.banded_pull) == bands
-    out = gcn_forward(params_from_jax(params_np), gt, norm,
+    out = gcn_forward(params_from_jax(params_np, device="cpu"), gt, norm,
                       torch.from_numpy(x), impl=impl)
     assert out.dtype == torch.float32 and out.shape == want.shape
     # the tolerance of tests/test_gcn.py: float32 sums in another order
@@ -83,7 +84,7 @@ def test_gcn_forward_matches(setup, monkeypatch, impl, bands):
 def test_gcn_forward_bf16_messages(setup):
     ht, gt, params_np, x, want, _ = setup
     norm = gcn_normalize(gt)
-    params = params_from_jax(params_np)
+    params = params_from_jax(params_np, device="cpu")
     xt = torch.from_numpy(x)
     f32 = gcn_forward(params, gt, norm, xt, impl="banded")
     b16 = gcn_forward(params, gt, norm, xt, impl="banded",
@@ -96,8 +97,8 @@ def test_gcn_forward_bf16_messages(setup):
 
 
 def test_gcn_init():
-    p1 = gcn_init(torch.Generator().manual_seed(3), DIMS)
-    p2 = gcn_init(torch.Generator().manual_seed(3), DIMS)
+    p1 = gcn_init(torch.Generator().manual_seed(3), DIMS, device="cpu")
+    p2 = gcn_init(torch.Generator().manual_seed(3), DIMS, device="cpu")
     assert [tuple(p["w"].shape) for p in p1] == [(32, 64), (64, 8)]
     for a, b, (fi, fo) in zip(p1, p2, zip(DIMS[:-1], DIMS[1:])):
         assert torch.equal(a["w"], b["w"])
@@ -137,7 +138,7 @@ def test_gcn_train_steps_match(setup, monkeypatch, impl, bands, mdt):
         monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", 128 * 128 * 4)
     norm = gcn_normalize(gt)
     assert len(norm.banded_push) == bands
-    pt = params_from_jax(params_np)
+    pt = params_from_jax(params_np, device="cpu")
     ot = gcn_init_opt(pt)
     batch = (torch.from_numpy(labels), torch.from_numpy(mask))
     xt = torch.from_numpy(x)
@@ -159,11 +160,12 @@ def test_gcn_train_steps_match(setup, monkeypatch, impl, bands, mdt):
 def _setup_small(n=120, m=700, dims=(16, 32, 4), seed=0):
     """tests/test_gcn.py's setup, with the port's own RNG for params."""
     hg = tg.erdos_renyi(n, m, seed=seed, undirected=True)
-    gs = tg.GraphSlice.from_host(hg)
+    gs = tg.GraphSlice.from_host(hg, device="cpu")
     x = np.random.RandomState(seed).rand(gs.n_pad, dims[0]).astype(
         np.float32)
     x[hg.n:] = 0.0
-    params = gcn_init(torch.Generator().manual_seed(seed), list(dims))
+    params = gcn_init(torch.Generator().manual_seed(seed), list(dims),
+                      device="cpu")
     return hg, gs, gcn_normalize(gs), params, torch.from_numpy(x)
 
 
@@ -172,7 +174,8 @@ def test_gcn_training_reduces_loss(impl):
     """tests/test_gcn.py:45-59: fit teacher labels of a random GCN of the
     same shape."""
     hg, gs, norm, params, x = _setup_small()
-    teacher = gcn_init(torch.Generator().manual_seed(99), [16, 32, 4])
+    teacher = gcn_init(torch.Generator().manual_seed(99), [16, 32, 4],
+                       device="cpu")
     labels = torch.argmax(gcn_forward(teacher, gs, norm, x), dim=-1)
     mask = torch.arange(gs.n_pad) < hg.n
     opt = gcn_init_opt(params)
@@ -200,14 +203,15 @@ def test_gcn_overfits_community_labels():
             dsts.append(v)
     hg = tg.from_edges(np.array(srcs), np.array(dsts), num_nodes=n,
                        make_undirected=True)
-    gs = tg.GraphSlice.from_host(hg)
+    gs = tg.GraphSlice.from_host(hg, device="cpu")
     norm = gcn_normalize(gs)
     x = torch.from_numpy(rng.rand(gs.n_pad, 8).astype(np.float32))
     labels = torch.cat([torch.zeros(50, dtype=torch.int64),
                         torch.ones(50, dtype=torch.int64),
                         torch.zeros(gs.n_pad - n, dtype=torch.int64)])
     mask = torch.arange(gs.n_pad) < n
-    params = gcn_init(torch.Generator().manual_seed(0), [8, 16, 2])
+    params = gcn_init(torch.Generator().manual_seed(0), [8, 16, 2],
+                      device="cpu")
     opt = gcn_init_opt(params)
     for _ in range(60):
         params, opt, _ = gcn_train_step(params, opt, gs, norm, x,

@@ -78,7 +78,7 @@ def test_mtx_load_and_roundtrip(tmp_path):
 @pytest.mark.parametrize("name", GRAPHS)
 def test_graph_slice_matches(name):
     gj = jg.GraphSlice.from_host(build(jg, name))
-    gt = tg.GraphSlice.from_host(build(tg, name))
+    gt = tg.GraphSlice.from_host(build(tg, name), device="cpu")
     for f in jg.GraphSlice._META_FIELDS:
         assert getattr(gj, f) == getattr(gt, f), f
     assert tg.GraphSlice._DATA_FIELDS == jg.GraphSlice._DATA_FIELDS
@@ -100,7 +100,7 @@ def test_banded_layout_matches(name, bands, direction):
     # 256-row padded graphs split into 2 bands
     row_bytes = 512 if bands == "K1" else tbanded.FAST_TABLE_BYTES // 128
     gj = jg.GraphSlice.from_host(build(jg, name))
-    gt = tg.GraphSlice.from_host(build(tg, name))
+    gt = tg.GraphSlice.from_host(build(tg, name), device="cpu")
     lj = jbanded.get_layout(gj, direction, row_bytes=row_bytes)
     lt = tbanded.get_layout(gt, direction, row_bytes=row_bytes)
     assert lt.K == lj.K == (1 if bands == "K1" else 2)

@@ -73,7 +73,7 @@ def test_segment_reduce_plain_matches_pallas(op, dtype):
 def two_band_layout():
     """A 256-row graph cut into 2 bands of 128 rows (pull layout)."""
     hg = erdos_renyi(200, 1200, seed=3, undirected=True, weighted=True)
-    gs = GraphSlice.from_host(hg)
+    gs = GraphSlice.from_host(hg, device="cpu")
     lay = build_banded_layout(
         gs.col_offsets.numpy(), gs.csc_srcs.numpy(), gs.csc_weights.numpy(),
         gs.edge_mask_csc.numpy(), 128, "pull",
@@ -110,7 +110,7 @@ def test_banded_segment_sum_plain_matches_pallas(two_band_layout, dtype):
 
 
 def _pull_layout(hg, band_rows):
-    gs = GraphSlice.from_host(hg)
+    gs = GraphSlice.from_host(hg, device="cpu")
     return build_banded_layout(
         gs.col_offsets.numpy(), gs.csc_srcs.numpy(), gs.csc_weights.numpy(),
         gs.edge_mask_csc.numpy(), band_rows, "pull",

@@ -34,7 +34,7 @@ GRAPHS = ["tiny", "random", "random_directed"]
 def slices(request):
     """(JAX GraphSlice, port GraphSlice) of the same graph."""
     return (jg.GraphSlice.from_host(build(jg, request.param)),
-            tg.GraphSlice.from_host(build(tg, request.param)))
+            tg.GraphSlice.from_host(build(tg, request.param), device="cpu"))
 
 
 def t(a):
@@ -162,8 +162,8 @@ def test_apply_filter_compute_match(slices):
     idx = np.array([3, -1, 0, gt.n_pad + 5, 3], np.int32)
     eq(JFrontier.from_indices(jnp.asarray(idx), gt.n_pad).mask,
        TFrontier.from_indices(t(idx), gt.n_pad).mask)
-    assert int(TFrontier.full(gt.n_pad, gt.n).size()) == gt.n
-    assert not TFrontier.empty(gt.n_pad).mask.any()
+    assert int(TFrontier.full(gt.n_pad, gt.n, device="cpu").size()) == gt.n
+    assert not TFrontier.empty(gt.n_pad, device="cpu").mask.any()
 
 
 @pytest.fixture
@@ -177,7 +177,7 @@ def two_bands(monkeypatch):
 @pytest.mark.parametrize("direction", ["pull", "push"])
 def test_spmm_matches(two_bands, impl, direction):
     gj = jg.GraphSlice.from_host(build(jg, "random_directed"))
-    gt = tg.GraphSlice.from_host(build(tg, "random_directed"))
+    gt = tg.GraphSlice.from_host(build(tg, "random_directed"), device="cpu")
     if impl == "banded":
         assert tbanded.get_layout(gt, direction, row_bytes=512).K == 2
     rng = np.random.RandomState(7)
@@ -199,7 +199,7 @@ def test_spmm_matches(two_bands, impl, direction):
 
 
 def test_spmm_banded_weights_and_precision(two_bands):
-    gt = tg.GraphSlice.from_host(build(tg, "random"))
+    gt = tg.GraphSlice.from_host(build(tg, "random"), device="cpu")
     lay = tbanded.get_layout(gt, "pull", row_bytes=512)
     rng = np.random.RandomState(8)
     x = t((rng.rand(gt.n_pad, 64) - 0.5).astype(np.float32))

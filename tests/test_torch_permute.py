@@ -142,7 +142,7 @@ def pair(bands, directed=True):
     kw = dict(seed=9, undirected=not directed, weighted=True)
     args = (300, 2500 if directed else 2400)
     return (jg.GraphSlice.from_host(jg.erdos_renyi(*args, **kw)),
-            tg.GraphSlice.from_host(tg.erdos_renyi(*args, **kw)))
+            tg.GraphSlice.from_host(tg.erdos_renyi(*args, **kw), device="cpu"))
 
 
 def small_bands(monkeypatch, bands):
@@ -197,14 +197,16 @@ def test_composite_cache_dropped_with_its_graph():
     """Evicting a graph from the host cache (MAX_HOST_GRAPHS + 1
     registrations) drops its composite rank too; JAX's
     ``_COMPOSITE_CACHE`` keeps it (a known fault of the reference)."""
-    g0 = tg.GraphSlice.from_host(tg.erdos_renyi(200, 900, seed=100))
+    g0 = tg.GraphSlice.from_host(tg.erdos_renyi(200, 900, seed=100),
+                                 device="cpu")
     lp = tbanded.get_layout(g0, "pull", row_bytes=512)
     lb = tbanded.get_layout(g0, "push", row_bytes=512)
     assert tbanded.get_pull_to_push_rank(g0, lp, lb) is not None
     mine = [k for k in tbanded._COMPOSITE_CACHE if k[0] == g0.fingerprint]
     assert mine
     for s in range(tbanded.MAX_HOST_GRAPHS):
-        tg.GraphSlice.from_host(tg.erdos_renyi(200, 900, seed=101 + s))
+        tg.GraphSlice.from_host(tg.erdos_renyi(200, 900, seed=101 + s),
+                                device="cpu")
     assert g0.fingerprint not in tbanded._HOST_CACHE
     assert not any(k in tbanded._COMPOSITE_CACHE for k in mine)
     assert not any(k[0] == g0.fingerprint for k in tbanded._LAYOUT_CACHE)

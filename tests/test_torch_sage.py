@@ -25,7 +25,7 @@ def setup(seed=2):
     kw = dict(seed=seed, undirected=False)
     hg = tg.erdos_renyi(300, 2400, **kw)
     gj = jg.GraphSlice.from_host(jg.erdos_renyi(300, 2400, **kw))
-    gt = tg.GraphSlice.from_host(hg)
+    gt = tg.GraphSlice.from_host(hg, device="cpu")
     x = np.random.RandomState(seed).rand(gt.n_pad, DIMS[0]).astype(
         np.float32)
     x[hg.n:] = 0
@@ -60,7 +60,7 @@ def test_forward_and_grads_match_jax(monkeypatch, impl, bands):
     assert tbanded.get_layout(gt, "pull", row_bytes=512).K == bands
     want, want_g = jax_forward_and_grads()
     leaves = [{k: v.requires_grad_() for k, v in p.items()}
-              for p in tsage.params_from_jax(params_np)]
+              for p in tsage.params_from_jax(params_np, device="cpu")]
     out = tsage.sage_forward(leaves, gt, torch.from_numpy(x), impl=impl)
     got_g = torch.autograd.grad((out[: hg.n] ** 2).sum(),
                                 [p[k] for p in leaves for k in ("w", "b")])
@@ -90,7 +90,7 @@ def test_train_steps_match_jax(impl):
         # copies: the next step donates these buffers
         want.append((float(lj), *([np.array(p[k]) for p in tree
                                    for k in ("w", "b")] for tree in (pj, oj))))
-    pt = tsage.params_from_jax(params_np)
+    pt = tsage.params_from_jax(params_np, device="cpu")
     ot = tsage.sage_init_opt(pt)
     batch = (torch.from_numpy(labels), torch.from_numpy(mask))
     for lj, pw, ow in want:
@@ -106,10 +106,11 @@ def test_train_steps_match_jax(impl):
 def test_train_step_decreases_loss():
     """tests/test_models.py:175-193 on the port's own RNG."""
     hg = tg.erdos_renyi(80, 500, seed=9, undirected=True)
-    gs = tg.GraphSlice.from_host(hg)
+    gs = tg.GraphSlice.from_host(hg, device="cpu")
     x = np.random.RandomState(9).rand(gs.n_pad, 8).astype(np.float32)
     x[hg.n:] = 0
-    params = tsage.sage_init(torch.Generator().manual_seed(9), [8, 16, 4])
+    params = tsage.sage_init(torch.Generator().manual_seed(9), [8, 16, 4],
+                             device="cpu")
     assert [tuple(p["w"].shape) for p in params] == [(16, 16), (32, 4)]
     opt = tsage.sage_init_opt(params)
     lab = torch.from_numpy(np.random.RandomState(9).randint(0, 4, gs.n_pad))

@@ -41,7 +41,7 @@ def pair(name):
     n, m, und = GRAPHS[name]
     kw = dict(seed=9, undirected=und, weighted=True)
     return (jg.GraphSlice.from_host(jg.erdos_renyi(n, m, **kw)),
-            tg.GraphSlice.from_host(tg.erdos_renyi(n, m, **kw)))
+            tg.GraphSlice.from_host(tg.erdos_renyi(n, m, **kw), device="cpu"))
 
 
 def inputs(g, seed=1):

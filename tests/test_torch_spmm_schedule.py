@@ -1,0 +1,355 @@
+"""The banded segment sum's load-balanced schedule (csrc/spmm_banded.cu),
+on the CPU.
+
+The CUDA kernel cannot run here, so its partition is reached three ways:
+``banded_segment_sum_scheduled_plain`` (the schedule in plain torch) is
+held against the plain version and the JAX twin; a line-by-line Python
+transcription of the kernel's walker and fix-up (``_walk_like_the_kernel``)
+must give the emulation's result bit for bit, since both add in float32
+in the same order; and the schedule cached by ``BandedLayout.dev()`` is
+reused by the model path and dropped with its graph.
+
+Tolerance: the emulation and the plain version sum the same terms, in
+float32 and in float64, so they differ by float32 rounding of sums of up
+to a few thousand terms: ``SUM_TOL = 1e-5`` of the largest output, the
+bound ``chip_smoke.py`` holds the kernel to.
+"""
+
+import gc
+import sys
+import weakref
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mini_tpu.ops.pallas.spmm_banded import (
+    banded_segment_sum as jax_banded_segment_sum,
+)
+from mini_tpu_torch.graph import GraphSlice, erdos_renyi, from_edges, rmat
+from mini_tpu_torch.graph import banded as tbanded
+from mini_tpu_torch.graph.banded import build_banded_layout, row_prefix
+from mini_tpu_torch.ops.kernels import spmm_banded as k2
+from mini_tpu_torch.ops.spmm import spmm
+
+SUM_TOL = 1e-5  # max |scheduled - plain| <= SUM_TOL * max |plain|
+
+
+def _kernel_args(lay):
+    return (torch.from_numpy(lay.bounds),
+            torch.from_numpy(np.ascontiguousarray(
+                lay.offs2d.transpose(1, 0, 2))))
+
+
+def _msgs(lay, F, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.rand(len(i), F).astype(np.float32) - 0.5)
+            .to(dtype) for i in lay.ids]
+
+
+def _pull_layout(hg, band_rows):
+    gs = GraphSlice.from_host(hg, device="cpu")
+    return build_banded_layout(
+        gs.col_offsets.numpy(), gs.csc_srcs.numpy(), gs.csc_weights.numpy(),
+        gs.edge_mask_csc.numpy(), band_rows, "pull",
+    )
+
+
+def _rmat_layout(K):
+    """rmat(10) (1152 padded rows, isolated vertices included) cut into K
+    bands, as FAST_TABLE_BYTES would cut it at 512-byte rows."""
+    lay = _pull_layout(rmat(10, edge_factor=8, seed=K, undirected=True,
+                            weighted=True), -(-1152 // K))
+    assert lay.K == K
+    return lay
+
+
+def _star_layout():
+    """One row (vertex 0) holds every edge: 3000 in-edges, 2 bands, so it
+    spans many chunks; every other row is empty."""
+    n = 3000
+    srcs = np.arange(1, n)
+    lay = _pull_layout(from_edges(srcs, np.zeros(n - 1, np.int64),
+                                  num_nodes=n), 1536)
+    assert lay.K == 2 and lay.lens[0] > 1000 and lay.lens[1] > 1000
+    return lay
+
+
+def _empty_band_layout():
+    """4 bands of 128 rows (385 rows padded to 512); no edge gathers from
+    band 1, so its stream has pad slots only."""
+    rng = np.random.RandomState(2)
+    n = 384
+    srcs = np.concatenate([rng.randint(0, 128, 900),
+                           rng.randint(256, n, 900)])
+    dsts = rng.randint(0, n, srcs.shape[0])
+    lay = _pull_layout(from_edges(srcs, dsts, num_nodes=n), 128)
+    assert lay.K == 4 and lay.lens[1] == 0 and lay.bounds[1, -1] == 0
+    return lay
+
+
+def _regular_layout():
+    """Every row has 4 in-edges and one band: with chunk = 8 every cut
+    falls exactly on a row end."""
+    n = 256
+    v = np.arange(n)
+    srcs = np.concatenate([(v + s) % n for s in (1, 2, 3, 5)])
+    dsts = np.concatenate([v] * 4)
+    lay = _pull_layout(from_edges(srcs, dsts, num_nodes=n), 512)
+    assert lay.K == 1
+    return lay
+
+
+LAYOUTS = {
+    "rmat_K1": lambda: _rmat_layout(1),
+    "rmat_K3": lambda: _rmat_layout(3),
+    "rmat_K9": lambda: _rmat_layout(9),
+    "star": _star_layout,
+    "empty_band": _empty_band_layout,
+    "regular": _regular_layout,
+}
+
+
+@pytest.fixture(scope="module")
+def layouts():
+    return {name: build() for name, build in LAYOUTS.items()}
+
+
+def _assert_close(got, want):
+    err = float((got - want).abs().max())
+    assert err <= SUM_TOL * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [1, 32, 33, 128])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_scheduled_matches_plain(layouts, name, F, dtype):
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    msgs = _msgs(lay, F, dtype)
+    want = k2.banded_segment_sum_plain(*args, msgs)
+    for chunk in (8, 61, 512, None):  # None: the kernel's own
+        got = k2.banded_segment_sum_scheduled_plain(*args, msgs, chunk=chunk)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _assert_close(got, want)
+
+
+def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes):
+    """``banded_segment_sum_kernel`` and ``banded_fixup_kernel`` of
+    csrc/spmm_banded.cu, transcribed statement by statement (one walker at
+    a time, all columns at once), in numpy float32.  Unwritten outputs and
+    carries are NaN, so a row written by nobody, or a carry read before it
+    was written, shows."""
+    bounds, offs2d = bounds.numpy(), offs2d.numpy()
+    prefix = prefix.numpy().astype(np.int64)
+    msgs = [m.float().numpy() for m in msgs]
+    K, n_tiles, F = len(msgs), offs2d.shape[0], msgs[0].shape[1]
+    n_rows = n_tiles * 128
+    total = int(prefix[n_rows])
+    n_walkers = -(-sum(m.shape[0] for m in msgs) // chunk)
+    out = np.full((n_rows, F), np.nan, np.float32)
+    carry = np.full((n_walkers, 2, F), np.nan, np.float32)
+
+    def segment(v, k):
+        t, r = divmod(v, 128)
+        e = offs2d[t, k, r + 1] if r + 1 < 128 else bounds[k, t + 1]
+        return int(offs2d[t, k, r]), int(e)
+
+    def flush(row, acc, start, stop, walker):
+        p0, p1 = prefix[row], prefix[row + 1]
+        if p0 >= start and p1 <= stop:
+            assert np.isnan(out[row]).all(), "a row written twice"
+            out[row] = acc
+        else:
+            carry[walker, 0 if p0 < start else 1] = acc
+
+    for walker in range(n_walkers):
+        start = walker * chunk
+        if start >= total:
+            continue
+        stop = start + chunk
+        end = min(stop, total)
+        v = int(np.searchsorted(prefix[:n_rows], start, side="right")) - 1
+        o, k = start - int(prefix[v]), 0
+        while True:
+            j, e = segment(v, k)
+            if o < e - j:
+                break
+            o -= e - j
+            k += 1
+        j += o
+        acc, row = np.zeros(F, np.float32), v
+        for _ in range(start, end):
+            if j == e:  # next_segment
+                while True:
+                    k += 1
+                    if k == K:  # empty rows: 4 steps, then a search
+                        k, v = 0, v + 1
+                        for _ in range(4):
+                            if prefix[v + 1] != prefix[v]:
+                                break
+                            v += 1
+                        if prefix[v + 1] == prefix[v]:
+                            v = int(np.searchsorted(prefix[:n_rows],
+                                                    prefix[v], "right")) - 1
+                    j, e = segment(v, k)
+                    if j != e:
+                        break
+            if v != row:
+                flush(row, acc, start, stop, walker)
+                row, acc = v, np.zeros(F, np.float32)
+            acc = acc + msgs[k][j]
+            j += 1
+        flush(row, acc, start, stop, walker)
+
+    groups = 32 // fix_lanes  # the fix-up warp's lane groups
+    for v in range(n_rows):
+        p0, p1 = int(prefix[v]), int(prefix[v + 1])
+        if p0 == p1:
+            out[v] = 0.0
+            continue
+        b0, b1 = p0 // chunk, (p1 - 1) // chunk
+        if b0 == b1:
+            continue
+        per = -(-(b1 - b0) // groups)
+        parts = []
+        for group in range(groups):
+            part = np.zeros(F, np.float32)
+            lo = b0 + 1 + group * per
+            for b in range(lo, min(lo + per, b1 + 1)):
+                part = part + carry[b, 0]
+            parts.append(part)
+        acc = carry[b0, 1].copy()
+        for part in parts:
+            acc = acc + part
+        out[v] = acc
+    assert not np.isnan(out).any()
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("name,F,dtype,chunk", [
+    ("rmat_K3", 33, torch.float32, 61),
+    ("rmat_K9", 8, torch.bfloat16, 512),
+    ("star", 8, torch.float32, 64),
+    ("empty_band", 5, torch.float32, 40),
+    ("regular", 3, torch.bfloat16, 8),
+])
+def test_kernel_walk_matches_scheduled_bitwise(layouts, name, F, dtype,
+                                               chunk):
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    msgs = _msgs(lay, F, dtype, seed=1)
+    prefix = row_prefix(*args)
+    want = k2.banded_segment_sum_scheduled_plain(*args, msgs,
+                                                 row_prefix=prefix,
+                                                 chunk=chunk)
+    fix_lanes = k2.kernel_plan(F, msgs[0].element_size(),
+                               k2._vector_ok(msgs))[2]
+    got = _walk_like_the_kernel(*args, msgs, prefix, chunk, fix_lanes)
+    assert torch.equal(got, want)
+    _assert_close(got, k2.banded_segment_sum_plain(*args, msgs))
+
+
+@pytest.mark.parametrize("F,elem,vector,plan", [
+    (128, 4, True, (32, 512, 32)),   # one warp a float32 row
+    (128, 2, True, (16, 256, 32)),   # two bf16 walkers a warp
+    (32, 4, True, (8, 128, 8)),      # four walkers, 4 fix-up lane groups
+    (32, 2, True, (4, 128, 8)),
+    (33, 4, False, (32, 512, 32)),   # scalar path, two column blocks
+    (1, 4, False, (1, 128, 1)),      # 32 walkers a warp
+])
+def test_kernel_plan(F, elem, vector, plan):
+    assert k2.kernel_plan(F, elem, vector) == plan
+
+
+def test_schedule_shapes(layouts):
+    """The row prefix counts every real slot once; the star's row spans
+    many chunks; the regular layout's rows end on every cut at chunk 8."""
+    for name, lay in layouts.items():
+        prefix = row_prefix(*_kernel_args(lay))
+        assert prefix.dtype == torch.int32
+        assert prefix.shape == (lay.n_pad + 1,) and int(prefix[0]) == 0
+        assert int(prefix[-1]) == int(lay.bounds[:, -1].sum()), name
+        assert bool((prefix[1:] >= prefix[:-1]).all())
+    star = row_prefix(*_kernel_args(layouts["star"])).long()
+    assert int(star[1] - star[0]) // k2.MIN_CHUNK >= 5
+    reg = row_prefix(*_kernel_args(layouts["regular"])).long()
+    assert bool((reg[::2] % 8 == 0).all())
+    # empty rows: RMAT isolated vertices and the star's leaves
+    assert bool((star[1:] == star[:-1]).any())
+
+
+def test_scheduled_matches_pallas(layouts):
+    """The emulation against the TPU twin in interpret mode (two bands of
+    128 rows)."""
+    hg = erdos_renyi(200, 1200, seed=3, undirected=True, weighted=True)
+    lay = _pull_layout(hg, 128)
+    assert lay.K == 2
+    bounds, offs2d = _kernel_args(lay)
+    msgs = _msgs(lay, 128, torch.float32, seed=4)
+    want = np.asarray(jax_banded_segment_sum(
+        jnp.asarray(lay.bounds), jnp.asarray(offs2d.numpy()),
+        [jnp.asarray(m.numpy()) for m in msgs], precision="highest",
+        interpret=True,
+    ))
+    got = k2.banded_segment_sum_scheduled_plain(bounds, offs2d, msgs,
+                                                chunk=64)
+    err = np.abs(got.numpy() - want).max()
+    assert err <= SUM_TOL * np.abs(want).max(), err
+
+
+def test_scheduled_precision_and_checks(layouts):
+    lay = layouts["rmat_K3"]
+    args = _kernel_args(lay)
+    msgs = _msgs(lay, 16, torch.float32)
+    # "fast" rounds float32 messages to bf16 first, as the kernel's does
+    fast = k2.banded_segment_sum_scheduled_plain(*args, msgs,
+                                                 precision="fast")
+    assert torch.equal(fast, k2.banded_segment_sum_scheduled_plain(
+        *args, [m.bfloat16() for m in msgs]))
+    with pytest.raises(ValueError):
+        k2.banded_segment_sum_scheduled_plain(*args, msgs[:2])
+    with pytest.raises(ValueError, match="precision"):
+        k2.banded_segment_sum_scheduled_plain(*args, msgs, precision="x")
+    # a layout with no real slot sums to zeros
+    zero = [m[:0] for m in msgs]
+    bounds = torch.zeros_like(args[0])
+    offs2d = torch.zeros_like(args[1])
+    out = k2.banded_segment_sum_scheduled_plain(bounds, offs2d, zero)
+    assert out.shape == (lay.n_pad, 16) and not out.any()
+
+
+def test_schedule_cached_reused_and_dropped_with_graph():
+    g = GraphSlice.from_host(erdos_renyi(300, 2000, seed=7, undirected=True),
+                             device="cpu")
+    lay = tbanded.get_layout(g, "pull")
+    d = lay.dev("cpu")
+    assert lay.dev("cpu")["row_prefix"] is d["row_prefix"]
+    assert torch.equal(d["row_prefix"], row_prefix(d["bounds"], d["offs2d"]))
+
+    # the banded SpMM hands the cached schedule to the kernel's wrapper
+    seen = []
+    real = k2.banded_segment_sum
+    mod = sys.modules["mini_tpu_torch.ops.spmm"]
+
+    def spy(*args, **kw):
+        seen.append(kw.get("row_prefix"))
+        return real(*args, **kw)
+
+    mod.banded_segment_sum = spy
+    try:
+        x = torch.rand(g.n_pad, 8, generator=torch.Generator().manual_seed(0))
+        spmm(g, x, impl="banded")
+        spmm(g, x, impl="banded")
+    finally:
+        mod.banded_segment_sum = real
+    assert len(seen) == 2 and all(p is d["row_prefix"] for p in seen)
+
+    ref = weakref.ref(d["row_prefix"])
+    del d, lay, seen
+    for s in range(tbanded.MAX_HOST_GRAPHS):  # evict the graph
+        GraphSlice.from_host(erdos_renyi(50, 100, seed=1000 + s),
+                             device="cpu")
+    gc.collect()
+    assert ref() is None
