@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py              # every phase, on one card
     python3 chip_smoke.py --profile    # the GAT step's profile alone
+    python3 chip_smoke.py --kernels    # phases 1 and 2 alone
 
 Phases; any failure ends with a traceback and a non-zero exit:
 
@@ -10,17 +11,21 @@ Phases; any failure ends with a traceback and a non-zero exit:
    the CUDA kernels built from ``mini_tpu_torch/csrc/``, one nvcc per
    source, all started together;
 2. each kernel against its plain torch version on the card, at the main
-   path's shapes (RMAT scale 16): the row gather bitwise also at the
-   shapes of the three TPU probes it replaces, the permutation bitwise at
-   2^21 elements and at the rmat16 composite rank, the SDDMM also with 2
-   heads; the segment sum (kernel 2) within SUM_TOL at F=128 and 32 in
-   float32 and bf16, two launches bitwise equal and equal to the plain
-   emulation of its schedule, also on a star graph (F=1, F=33 bf16,
-   F=128) and on the rmat18 pull layout (K=9, F=32); kernel wrappers
-   given inputs that require grad must raise.  Every kernel is timed over
-   many back-to-back launches (``cuda_ms``) beside its plain version, its
-   bound (``bound``) and, where one PyTorch call computes the same
-   function, that call;
+   path's shapes (RMAT scale 16): the row gather bitwise, also at the
+   shapes of the three TPU probes it replaces; the permutation bitwise at
+   2^21 elements and at the rmat16 composite rank with 1, 2 and 4
+   payloads, as a list and as one table (``permute_rows``), both
+   directions, and with payloads of every element size; the SDDMM also with 2 heads; the segment sum
+   (kernel 2) within SUM_TOL at F=128 and 32 in float32 and bf16, two
+   launches bitwise equal and equal to the plain emulation of its
+   schedule, also on a star graph (F=1, F=33 bf16, F=128) and on the
+   rmat18 pull layout (K=9, F=32); kernel wrappers given inputs that
+   require grad must raise.  Every kernel has two times: per call over
+   many back-to-back launches (``cuda_ms``: the host's enqueue where it
+   is the longer) and on the device alone (``graph_ms``: a CUDA graph of
+   captured launches), beside its plain version, its bound (``bound``)
+   and, where one PyTorch call computes the same function, that call.
+   The launch path's host cost per call is printed too;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
    weighted)`` and from 3 more reached sources: labels bitwise equal to
    ``bfs_cpu``, preds the host's min-id parent; time and MTEPS;
@@ -48,7 +53,8 @@ Phases; any failure ends with a traceback and a non-zero exit:
    RMAT graph's banded forward and gradients against ``impl="xla"``, the
    train step time;
 9. one JSON line of the kernels (launch counts of phases 3-8, each phase
-   counted from 0; phase 2's errors, times, bounds and library calls),
+   counted from 0; phase 2's errors, both times, bounds and library
+   calls),
    then the last line ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -87,7 +93,9 @@ def cuda_ms(fn, device, windows: int = 5, min_calls: int = 20,
     """Mean time of one ``fn()`` call over N back-to-back calls between one
     pair of CUDA events, N >= ``min_calls`` and enough for
     ``min_window_ms`` of work; the median of ``windows`` such windows.
-    (One call per window would time the ctypes enqueue, about 0.02 ms.)"""
+    Where a call's device work is shorter than its host enqueue (about
+    10-15 us on the launch path, :func:`check_launch_path`), this is the
+    enqueue; :func:`graph_ms` gives the device time alone."""
     import torch
 
     fn()
@@ -111,6 +119,81 @@ def cuda_ms(fn, device, windows: int = 5, min_calls: int = 20,
     return float(np.median(times))
 
 
+def graph_ms(fn, device, n: int = 20, replays: int = 5) -> tuple:
+    """``(ms, how)``: the device time of one ``fn()`` call alone, without
+    the host's enqueue.  ``n`` calls are captured in a CUDA graph and the
+    graph replayed ``replays`` times between a pair of CUDA events; the
+    median replay over ``n``.  A function that cannot be captured (it
+    synchronizes, say) is timed by the kernel durations that
+    ``torch.profiler`` records over ``n`` calls instead, and ``how`` says
+    why."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+    except Exception as exc:  # capture refused: measure another way
+        torch.cuda.synchronize(device)
+        return profiled_ms(fn, device, n), (
+            "profiler (not capturable: "
+            f"{str(exc).splitlines()[0][:60]})")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return float(np.median(times)), "cuda graph"
+
+
+def profiled_ms(fn, device, n: int = 20) -> float:
+    """The summed device time of the kernels of ``n`` calls of ``fn``, as
+    ``torch.profiler`` records it, over ``n``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(device)
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def host_us(fn, device, n: int = 2000) -> float:
+    """Host time of one ``fn()`` call in microseconds: ``n`` calls back to
+    back on the host clock, after a warm-up (for a launch, its enqueue)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize(device)
+    return host
+
+
+def timed(fn, device) -> dict:
+    """A kernel's two times: ``ms``, per call back to back (host enqueue
+    included where it is the longer), and ``device_ms``, the device alone
+    (:func:`graph_ms`), with ``device_how``."""
+    dev_ms, how = graph_ms(fn, device)
+    return dict(ms=cuda_ms(fn, device), device_ms=dev_ms, device_how=how)
+
+
 # The least time the card could take (NVIDIA's H100 SXM data sheet): bytes over the HBM rate, operations over the
 # float32 rate outside the tensor cores; the larger bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -132,10 +215,10 @@ def library(call: str, fn, device):
         return f"{call} raised: {str(exc).splitlines()[0][:80]}", None
 
 
-def kernel_stats(err, ms, plain_ms, bnd, lib) -> dict:
-    """One kernel's entry of the JSON line."""
+def kernel_stats(err, t, plain_ms, bnd, lib) -> dict:
+    """One kernel's entry of the JSON line; ``t`` from :func:`timed`."""
     call, lib_ms = lib
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+    return dict(max_abs_err=err, **t, plain_ms=plain_ms, **bnd,
                 library_ms=lib_ms, lib_call=call, lib_ms=lib_ms)
 
 
@@ -205,7 +288,8 @@ def phase_kernels(g, hg_big, device):
             assert torch.equal(got, want), (op, vals.dtype)
             err = 0.0
         err1 = max(err1, err)
-        ms = cuda_ms(lambda: k1.segment_reduce(*args), device)
+        t = timed(lambda: k1.segment_reduce(*args), device)
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: k1.segment_reduce_plain(*args), device)
         if op == "bor":
             lib = ("none: no PyTorch call reduces by bitwise or", None)
@@ -220,10 +304,11 @@ def phase_kernels(g, hg_big, device):
                 .scatter_reduce(0, dsts64, vals, red, include_self=False)),
                 device)
         log(f"# segment_reduce {op} {str(vals.dtype)[6:]}: err {err:.3g} "
-            f"kernel {ms:.4f} ms ({pct(ms, bnd1)}) plain {plain_ms:.4f} ms "
-            f"{lib[0]} {lib[1]} ms")
+            f"kernel {ms:.4f} ms ({pct(ms, bnd1)}, {bnd1['bound_ms']:.4f} "
+            f"ms), device {t['device_ms']:.4f} ms ({t['device_how']}); "
+            f"plain {plain_ms:.4f} ms {lib[0]} {lib[1]} ms")
         if op == "max" and vals.dtype == torch.int32:
-            t1 = (ms, plain_ms, lib)  # the BFS advance's or-reduce
+            t1 = (t, plain_ms, lib)  # the BFS advance's or-reduce
     stats["segment_reduce"] = kernel_stats(err1, t1[0], t1[1], bnd1, t1[2])
 
     layout = get_layout(g, "pull", row_bytes=F_HID * 4)
@@ -232,12 +317,12 @@ def phase_kernels(g, hg_big, device):
     for F in (F_HID, F_OUT):
         for dtype in (torch.float32, torch.bfloat16):
             msgs = band_messages(layout, dev, F, dtype, rng, device)
-            err, ms, plain_ms, bnd, lib = check_banded_sum(
+            err, t, plain_ms, bnd, lib = check_banded_sum(
                 f"rmat{SCALE} F={F} {str(dtype)[6:]}", layout, dev, msgs,
                 device)
             err2 = max(err2, err)
             if F == F_HID and dtype == torch.float32:
-                t2 = (ms, plain_ms, bnd, lib)
+                t2 = (t, plain_ms, bnd, lib)
     # the streams of the last case above, made to require grad
     refuses_grad("banded_segment_sum", lambda *rg: k2.banded_segment_sum(
         dev["bounds"], dev["offs2d"], rg), *msgs)
@@ -282,6 +367,7 @@ def phase_kernels(g, hg_big, device):
 
     stats["banded_sddmm"] = check_sddmm(layout, dev, rng, device)
     stats["segment_sum"] = check_segment_sum(g, rng, device)
+    check_launch_path(device)
     stats["gather_rows"] = check_gather(layout, dev, rng, device)
     stats["apply_fixed_perm"] = check_permute(g, rng, device)
     log("# phase 2: kernels match their plain versions")
@@ -331,8 +417,8 @@ def check_banded_sum(label, layout, dev, msgs, device):
     bnd = bound(sum(real) * F * elem + layout.n_pad * F * 4
                 + layout.K * layout.n_pad * 4 + (layout.n_pad + 1) * 4,
                 ops=sum(real) * F)
-    ms = cuda_ms(lambda: k2.banded_segment_sum(*args, row_prefix=prefix),
-                 device)
+    t = timed(lambda: k2.banded_segment_sum(*args, row_prefix=prefix), device)
+    ms = t["ms"]
     plain_ms = cuda_ms(lambda: k2.banded_segment_sum_plain(*args), device,
                        windows=3)
     # index_add_ wants one dtype: bf16 messages go in as float32 copies,
@@ -343,9 +429,10 @@ def check_banded_sum(label, layout, dev, msgs, device):
         layout.n_pad, F, device=device).index_add_(0, seg, flat), device)
     log(f"# banded_segment_sum {label} K={layout.K}: err {err:.3g} (bound "
         f"{limit:.3g}), two launches and the emulated schedule bitwise; "
-        f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) "
-        f"plain {plain_ms:.4f} ms index_add_ {lib[1]} ms")
-    return err, ms, plain_ms, bnd, lib
+        f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms), "
+        f"device {t['device_ms']:.4f} ms ({t['device_how']}); plain "
+        f"{plain_ms:.4f} ms index_add_ {lib[1]} ms")
+    return err, t, plain_ms, bnd, lib
 
 
 def check_sddmm(layout, dev, rng, device):
@@ -394,16 +481,18 @@ def check_sddmm(layout, dev, rng, device):
         assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
         err = float(diff.max())
         err3 = max(err3, err)
-        ms = cuda_ms(lambda: k2.banded_sddmm(*args), device)
+        t = timed(lambda: k2.banded_sddmm(*args), device)
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args), device,
                            windows=3)
         bnd = bnd3(msgs[0].element_size())
         log(f"# banded_sddmm F={F_HID} {str(dtype)[6:]} K={layout.K}: err "
             f"{err:.3g} (max per-slot ratio {ratio:.3g}, bound {DOT_TOL}) "
-            f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) "
-            f"plain {plain_ms:.4f} ms")
+            f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms), "
+            f"device {t['device_ms']:.4f} ms ({t['device_how']}); plain "
+            f"{plain_ms:.4f} ms")
         if dtype == torch.float32:
-            t3 = (ms, plain_ms, bnd, none)
+            t3 = (t, plain_ms, bnd, none)
     # GAT's weight cotangent: 2 heads, each over its 64 columns, one launch
     H = 2
     msgs = [torch.index_select(x[k * layout.band_rows:
@@ -421,14 +510,16 @@ def check_sddmm(layout, dev, rng, device):
     assert ratio <= DOT_TOL, ("heads", ratio)
     assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
     err3 = max(err3, float(diff.max()))
-    ms = cuda_ms(lambda: k2.banded_sddmm(*args, heads=H), device)
+    t = timed(lambda: k2.banded_sddmm(*args, heads=H), device)
+    ms = t["ms"]
     plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args, heads=H), device,
                        windows=3)
     bnd = bnd3(4, H)
     log(f"# banded_sddmm F={F_HID} H={H} float32 K={layout.K}: err "
         f"{float(diff.max()):.3g} (max per-slot ratio {ratio:.3g}, bound "
         f"{DOT_TOL}) kernel {ms:.4f} ms ({pct(ms, bnd)}, "
-        f"{bnd['bound_ms']:.4f} ms) plain {plain_ms:.4f} ms")
+        f"{bnd['bound_ms']:.4f} ms), device {t['device_ms']:.4f} ms "
+        f"({t['device_how']}); plain {plain_ms:.4f} ms")
     return kernel_stats(err3, *t3)
 
 
@@ -452,34 +543,60 @@ def refuses_grad(name, fn, *tensors) -> None:
 def check_gather(layout, dev, rng, device):
     """``gather_rows`` bitwise against ``index_select`` at the shapes of
     the TPU probes it replaces (rows 5-7 of PERF.md's kernel table) and at
-    the rmat16 band gathers of the F=128 layout (the path shape)."""
+    the rmat16 band gathers of the F=128 layout (the path shape), float32
+    and bf16; indices out of range give zero rows.  Per call and device
+    times of the wrapper and of ``index_select``."""
     import torch
 
     from mini_tpu_torch.ops.kernels import gather_rows as kg
 
-    def case(label, W, M, dtype=torch.float32, F=128):
+    def case(label, calls, nbytes):
+        """``calls(fn)`` runs the case's gathers through ``fn(table,
+        idx)``."""
+        want = calls(kg.gather_rows_plain)
+        got = calls(kg.gather_rows)
+        torch.cuda.synchronize(device)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), label
+        t = timed(lambda: calls(kg.gather_rows), device)
+        lib = timed(lambda: calls(kg.gather_rows_plain), device)
+        bnd = bound(nbytes)
+        log(f"# gather_rows {label}: bitwise; {t['ms']:.4f} ms per call "
+            f"({pct(t['ms'], bnd)}, {bnd['bound_ms']:.4f} ms), device "
+            f"{t['device_ms']:.4f} ms ({pct(t['device_ms'], bnd)}); "
+            f"index_select {lib['ms']:.4f} ms per call, device "
+            f"{lib['device_ms']:.4f} ms")
+        return t, lib, bnd
+
+    def probe(label, W, M, dtype=torch.float32, F=128):
         table = torch.from_numpy(rng.randn(W, F).astype(np.float32)).to(
             device=device, dtype=dtype)
         idx = torch.from_numpy(rng.randint(0, W, M).astype(np.int32)).to(
             device)
-        got = kg.gather_rows(table, idx)
-        torch.cuda.synchronize(device)
-        assert torch.equal(got, kg.gather_rows_plain(table, idx)), label
-        ms = cuda_ms(lambda: kg.gather_rows(table, idx), device)
-        plain_ms = cuda_ms(lambda: kg.gather_rows_plain(table, idx), device)
         elem = table.element_size()
-        bnd = bound(W * F * elem + M * 4 + M * F * elem)
-        log(f"# gather_rows {label} table [{W},{F}] {str(dtype)[6:]} "
-            f"idx [{M}]: bitwise, kernel {ms:.4f} ms ({pct(ms, bnd)}, "
-            f"{bnd['bound_ms']:.4f} ms) plain = index_select {plain_ms:.4f} "
-            f"ms")
+        case(f"{label} table [{W},{F}] {str(dtype)[6:]} idx [{M}]",
+             lambda fn: [fn(table, idx)], W * F * elem + M * 4 + M * F * elem)
 
     for dtype in (torch.float32, torch.bfloat16):
-        case("probe_dma_gather", 65536, 128 * 1024, dtype)
-    case("probe_dma_bisect", 1024, 2048)
+        probe("probe_dma_gather", 65536, 128 * 1024, dtype)
+    probe("probe_dma_bisect", 1024, 2048)
     for W, C in ((512, 512), (2048, 2048), (8192, 8192), (2048, 512)):
-        case("probe_hbm_and_gather", W, C)
-    case("odd width F=40", 4096, 100000, F=40)
+        probe("probe_hbm_and_gather", W, C)
+    probe("width F=40", 4096, 100000, F=40)
+    # wide rows
+    probe("wide rows F=1024", 4096, 65536, F=1024)
+    probe("wide rows F=4096", 1024, 16384, F=4096)
+    probe("odd width F=33", 4096, 100000, torch.bfloat16, F=33)
+
+    # out-of-range indices: zero rows
+    table = torch.from_numpy(rng.randn(4096, 128).astype(np.float32)).to(
+        device)
+    idx = torch.from_numpy(rng.randint(-100, 4196, 1 << 16).astype(
+        np.int32)).to(device)
+    ok = (idx >= 0) & (idx < 4096)
+    want = torch.where(ok[:, None], table[idx.clamp(0, 4095).long()], 0.0)
+    assert torch.equal(kg.gather_rows(table, idx), want)
+    log(f"# gather_rows: {int((~ok).sum())} indices out of range give zero "
+        f"rows")
 
     t = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -487,97 +604,131 @@ def check_gather(layout, dev, rng, device):
             np.float32)).to(device=device, dtype=dtype)
         bands = [x[k * layout.band_rows: (k + 1) * layout.band_rows]
                  for k in range(layout.K)]
-
-        def run(fn):
-            return [fn(b, i) for b, i in zip(bands, dev["ids"])]
-
-        for a, b in zip(run(kg.gather_rows), run(kg.gather_rows_plain)):
-            assert torch.equal(a, b)
-        ms = cuda_ms(lambda: run(kg.gather_rows), device)
-        plain_ms = cuda_ms(lambda: run(kg.gather_rows_plain), device)
         elem = x.element_size()
-        bnd = bound(layout.n_pad * F_HID * elem + layout.total_padded * 4
-                    + layout.total_padded * F_HID * elem)
-        log(f"# gather_rows rmat{SCALE} pull bands F={F_HID} "
-            f"{str(dtype)[6:]} K={layout.K} ({layout.total_padded} rows): "
-            f"bitwise, kernel {ms:.4f} ms ({pct(ms, bnd)}, "
-            f"{bnd['bound_ms']:.4f} ms) plain = index_select "
-            f"{plain_ms:.4f} ms")
+        res = case(f"rmat{SCALE} pull bands F={F_HID} {str(dtype)[6:]} "
+                   f"K={layout.K} ({layout.total_padded} rows)",
+                   lambda fn: [fn(b, i) for b, i in zip(bands, dev["ids"])],
+                   layout.n_pad * F_HID * elem + layout.total_padded * 4
+                   + layout.total_padded * F_HID * elem)
         if dtype == torch.float32:
-            t = (ms, plain_ms, bnd)
+            t = res
     refuses_grad("gather_rows", lambda tb: kg.gather_rows(tb, dev["ids"][0]),
                  bands[0])
     # the plain version is the library call: index_select per band
-    return kernel_stats(0.0, t[0], t[1], t[2],
-                        ("torch.index_select (the plain version)", t[1]))
+    kt, lib, bnd = t
+    return kernel_stats(0.0, kt, lib["ms"], bnd,
+                        ("torch.index_select (the plain version)",
+                         lib["ms"]))
 
 
 def check_permute(g, rng, device):
-    """The permutation kernel bitwise against its plain version: 2^21
-    float32 elements by a random permutation (the butterfly probe's
-    size), and the rmat16 pull-to-push composite rank of the GAT
-    backward with its 2H=4 payloads (the path shape), both directions."""
+    """The permutation kernel bitwise against its plain versions, both
+    directions, with 1, 2 and 4 float32 payloads as a list (stacked into
+    one table of 4, 8 or 16-byte rows) and as one ``[n, P]`` table (``permute_rows``): at
+    2^21 elements by a random permutation (the butterfly probe's size) and
+    at the rmat16 pull-to-push composite rank of the GAT backward (2H=4
+    columns: the path shape).  Timed: the forward as (i) a scatter by the
+    rank and (ii) a gather by the inverse rank (the path's form: the
+    banded layouts and the composite rank cache their inverses), the list
+    form, the plain version, one ``index_copy_`` of the table and one per
+    payload."""
     import torch
 
     from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
     from mini_tpu_torch.ops.kernels import permute_kernel as kp
 
+    def inverse_of(r):
+        inv = torch.empty_like(r)
+        inv[r.long()] = torch.arange(r.shape[0], dtype=r.dtype, device=device)
+        return inv
+
     m = 1 << 21
     rank = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(device)
-    pay = [torch.from_numpy(rng.randn(m).astype(np.float32)).to(device)]
-    cases = [("2^21 random", rank, pay)]
-    comp = get_pull_to_push_rank(
-        g, get_layout(g, "pull", row_bytes=F_HID * 4),
-        get_layout(g, "push", row_bytes=F_HID * 4))
-    n = comp.shape[0]
-    cases.append((f"rmat{SCALE} composite", comp, [
-        torch.from_numpy(rng.randn(n).astype(np.float32)).to(device)
-        for _ in range(4)]))
-    t = None
-    for label, r, p in cases:
-        for inverse in (False, True):
-            got = kp.permute(r, p, inverse=inverse)
-            want = kp.permute_plain(r, p, inverse=inverse)
-            torch.cuda.synchronize(device)
-            assert all(torch.equal(a, b) for a, b in zip(got, want)), label
-        ms = cuda_ms(lambda: kp.permute(r, p), device)
-        plain_ms = cuda_ms(lambda: kp.permute_plain(r, p), device)
+    lays = (get_layout(g, "pull", row_bytes=F_HID * 4),
+            get_layout(g, "push", row_bytes=F_HID * 4))
+    comp = get_pull_to_push_rank(g, *lays)
+    assert torch.equal(inverse_of(comp),
+                       get_pull_to_push_rank(g, *lays, inverse=True))
+    stat = None
+    for label, r in (("2^21 random", rank), (f"rmat{SCALE} composite", comp)):
         n = r.shape[0]
-        bnd = bound(n * 4 + 2 * n * 4 * len(p))
-        r64 = r.long()
-        lib = library(f"Tensor.index_copy_ x {len(p)}", lambda: [
-            torch.empty_like(q).index_copy_(0, r64, q) for q in p], device)
-        log(f"# apply_fixed_perm {label} [{n}] x {len(p)} float32 "
-            f"payloads: bitwise both ways, kernel {ms:.4f} ms "
-            f"({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) plain "
-            f"{plain_ms:.4f} ms {lib[0]} {lib[1]} ms")
-        t = (ms, plain_ms, bnd, lib)
-    check_permute_dtypes(g, comp, p[0], rng, device)
+        r_inv, r64 = inverse_of(r), r.long()
+        for P in (1, 2, 4):
+            pay = [torch.from_numpy(rng.randn(n).astype(np.float32)).to(
+                device) for _ in range(P)]
+            table = torch.stack(pay, dim=1)
+            for inverse in (False, True):
+                got = kp.permute(r, pay, inverse=inverse)
+                want = kp.permute_plain(r, pay, inverse=inverse)
+                rows = kp.permute_rows(r, table, inverse=inverse)
+                torch.cuda.synchronize(device)
+                assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                    label, P, inverse)
+                assert torch.equal(rows, kp.permute_rows_plain(
+                    r, table, inverse=inverse)), (label, P, inverse)
+            assert torch.equal(kp.permute_rows(r_inv, table, inverse=True),
+                               kp.permute_rows(r, table))
+            scatter = timed(lambda: kp.permute_rows(r, table), device)
+            gather = timed(lambda: kp.permute_rows(r_inv, table,
+                                                   inverse=True), device)
+            listed = timed(lambda: kp.permute(r, pay), device)
+            plain_ms = cuda_ms(lambda: kp.permute_rows_plain(r, table),
+                               device)
+            lib = library("Tensor.index_copy_ (one, the [n, P] table)",
+                          lambda: torch.empty_like(table).index_copy_(
+                              0, r64, table), device)
+            lib_p = library(f"Tensor.index_copy_ x {P}", lambda: [
+                torch.empty_like(q).index_copy_(0, r64, q) for q in pay],
+                device)
+            bnd = bound(n * 4 + 2 * n * 4 * P)
+            log(f"# apply_fixed_perm {label} [{n}] x {P} float32: bitwise "
+                f"both ways, list and table; (i) scatter {scatter['ms']:.4f} "
+                f"ms per call ({pct(scatter['ms'], bnd)}, "
+                f"{bnd['bound_ms']:.4f} ms), device "
+                f"{scatter['device_ms']:.4f} ms; (ii) gather by the inverse "
+                f"{gather['ms']:.4f} ms, device {gather['device_ms']:.4f} ms;"
+                f" list of {P} {listed['ms']:.4f} ms, device "
+                f"{listed['device_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+                f"{lib[0]} {lib[1]} ms; {lib_p[0]} {lib_p[1]} ms")
+            if r is comp and P == 4:  # the path's call: a gather, (ii)
+                stat = kernel_stats(0.0, gather, plain_ms, bnd, lib)
+    check_permute_dtypes(g, comp, pay[0], rng, device)
     refuses_grad("apply_fixed_perm", lambda v: kp.permute(comp, [v]),
-                 p[0])
-    return kernel_stats(0.0, *t)
+                 pay[0])
+    refuses_grad("permute_rows", lambda v: kp.permute_rows(comp, v),
+                 table)
+    return stat
 
 
 def check_permute_dtypes(g, comp, base, rng, device):
-    """Payloads of 1, 2, 4 and 8 bytes move together in one launch,
-    bitwise against the plain version both ways; and the banded SpMM with
-    bfloat16, float16 or float64 edge weights (which go through the band
-    permutes as they are) equals it with the same weights in float32."""
+    """Payloads of 1, 2, 4 and 8 bytes move as one table per element size
+    (16 bools, 9 two-byte, 7 float32, 3 eight-byte payloads), bitwise
+    against the plain version both ways; and the banded
+    SpMM with bfloat16, float16 or float64 edge weights (which go through
+    the band permutes as they are) equals it with the same weights in
+    float32."""
     import torch
 
     from mini_tpu_torch.ops.kernels import permute_kernel as kp
     from mini_tpu_torch.ops.spmm import spmm
 
-    pays = [base > 0, base.to(torch.bfloat16), base.half(), base,
-            base.double(),
-            torch.arange(base.shape[0], device=device, dtype=torch.int64)
-            << 33]
+    pays = [base > b for b in np.linspace(-2, 2, 16)]
+    pays += [(base * s).to(torch.bfloat16) for s in range(1, 9)]
+    pays += [base.half()]
+    pays += [base * s for s in range(1, 8)]
+    pays += [base.double(), base.double() * 3,
+             torch.arange(base.shape[0], device=device, dtype=torch.int64)
+             << 33]
+    sizes = sorted({p.element_size() for p in pays})
     for inverse in (False, True):
+        before = kp.launches
         got = kp.permute(comp, pays, inverse=inverse)
+        launched = kp.launches - before
         want = kp.permute_plain(comp, pays, inverse=inverse)
         torch.cuda.synchronize(device)
         assert all(a.dtype == b.dtype and torch.equal(a, b)
                    for a, b in zip(got, want))
+        assert launched == len(sizes), launched
     x = torch.from_numpy(rng.rand(g.n_pad, F_HID).astype(np.float32)).to(
         device)
     w = torch.from_numpy(rng.rand(g.m_pad).astype(np.float32)).to(device)
@@ -590,9 +741,44 @@ def check_permute_dtypes(g, comp, base, rng, device):
         assert torch.equal(got, want), dtype
         assert float((got - ref).abs().max()) <= 1e-2 * float(
             ref.abs().max()), dtype
-    log("# apply_fixed_perm bool/bf16/f16/f32/f64/i64 payloads in one "
-        "launch: bitwise both ways; banded SpMM with bf16/f16/f64 weights "
-        "equals float32 weights")
+    log(f"# apply_fixed_perm {len(pays)} bool/bf16/f16/f32/f64/i64 payloads "
+        f"as tables of {sizes}-byte elements, {launched} launch(es): "
+        f"bitwise both ways; banded SpMM with "
+        f"bf16/f16/f64 weights equals float32 weights")
+
+
+def check_launch_path(device):
+    """The launch path's host cost per call: the bound C entry alone (its
+    ctypes call and the kernel launch), the two ways to read the current
+    stream, an output's allocation, and the wrapper's enqueue against
+    ``index_select``'s at the bisect probe's shape (idx [2048], table
+    [1024, 128])."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
+
+    rng = np.random.RandomState(5)
+    table = torch.from_numpy(rng.randn(1024, 128).astype(np.float32)).to(
+        device)
+    idx = torch.from_numpy(rng.randint(0, 1024, 2048).astype(np.int32)).to(
+        device)
+    out = kg.gather_rows(table, idx)  # binds the C entry
+    ptrs = (idx.data_ptr(), table.data_ptr(), out.data_ptr())
+    raw = torch._C._cuda_getCurrentRawStream(device.index)
+    res = dict(
+        c_entry=host_us(lambda: kg._launch(*ptrs, 2048, 1024, 512, raw),
+                        device),
+        current_stream=host_us(
+            lambda: torch.cuda.current_stream(device).cuda_stream, device),
+        raw_stream=host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(device.index), device),
+        gather_rows=host_us(lambda: kg.gather_rows(table, idx), device),
+        index_select=host_us(lambda: torch.index_select(table, 0, idx),
+                             device),
+        empty=host_us(lambda: table.new_empty((2048, 128)), device),
+    )
+    log("# launch path, host us per call: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in res.items()))
 
 
 def check_segment_sum(g, rng, device):
@@ -618,7 +804,8 @@ def check_segment_sum(g, rng, device):
         assert err <= limit, (dtype, err, limit)
         assert torch.equal(got, k4.segment_sum(*args)), "launches differ"
         err4 = max(err4, err)
-        ms = cuda_ms(lambda: k4.segment_sum(*args), device)
+        t = timed(lambda: k4.segment_sum(*args), device)
+        ms = t["ms"]
         plain_ms = cuda_ms(lambda: k4.segment_sum_plain(*args), device,
                            windows=3)
         elem = msgs.element_size()
@@ -633,14 +820,15 @@ def check_segment_sum(g, rng, device):
                 library("Tensor.index_add_", lambda: torch.zeros(
                     g.n_pad, F_HID, device=device).index_add_(
                         0, dsts64, flat), device)]
-        timed = [lib for lib in libs if lib[1] is not None]
-        lib = min(timed, key=lambda c: c[1]) if timed else libs[0]
+        ran = [lib for lib in libs if lib[1] is not None]
+        lib = min(ran, key=lambda c: c[1]) if ran else libs[0]
         log(f"# segment_sum F={F_HID} {str(dtype)[6:]} K=1: err {err:.3g} "
             f"(bound {limit:.3g}), two launches bitwise; kernel {ms:.4f} ms "
-            f"({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms) plain "
-            f"{plain_ms:.4f} ms; " + "; ".join(f"{c} {t} ms" for c, t in libs))
+            f"({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms), device "
+            f"{t['device_ms']:.4f} ms ({t['device_how']}); plain "
+            f"{plain_ms:.4f} ms; " + "; ".join(f"{c} {x} ms" for c, x in libs))
         if dtype == torch.float32:
-            t4 = (ms, plain_ms, bnd, lib)
+            t4 = (t, plain_ms, bnd, lib)
     return kernel_stats(err4, *t4)
 
 
@@ -908,7 +1096,7 @@ PROFILE_PARTS = (
     ("kernel 2 (banded_segment_sum)", ("banded_segment_sum_kernel",
                                        "banded_fixup_kernel")),
     ("kernel 3 (banded_sddmm)", ("banded_sddmm_kernel",)),
-    ("row gather (gather_rows)", ("gather_rows_kernel",)),
+    ("row gather (gather_rows)", ("gather_rows",)),
     ("kernel 1 (segment_reduce)", ("segreduce_kernel",)),
     ("permutation (apply_fixed_perm)", ("permute_kernel",)),
     ("dense mm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
@@ -1279,6 +1467,8 @@ def main(argv) -> None:
     log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (host graph "
         f"{time.perf_counter() - t0:.2f} s)")
     stats = phase_kernels(g, hg_big, device)
+    if argv == ["--kernels"]:  # phases 1 and 2 alone, no result
+        return
 
     hg_er = erdos_renyi(2048, 16384, seed=0, undirected=True)
 

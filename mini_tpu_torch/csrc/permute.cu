@@ -1,10 +1,10 @@
-// Fixed permutation of up to kMaxPayloads payloads in one launch:
-//   forward:  out_p[rank[i]] = in_p[i]   (a scatter by rank)
-//   inverse:  out_p[i] = in_p[rank[i]]   (a gather by rank)
-// for i < m, rank int32 [m] a permutation of [0, m).  Each payload has its
-// own element size (1, 2, 4 or 8 bytes: bool, bf16/f16, f32/i32, f64/i64);
-// the kernel moves elements, not values.  The inverse is the transpose of
-// the forward, so one kernel serves apply_fixed_perm and its gradient.
+// Fixed permutation of the rows of one table:
+//   forward:  out[rank[i]] = in[i]   (a scatter by rank)
+//   inverse:  out[i] = in[rank[i]]   (a gather by rank)
+// for i < m, rank int32 [m] a permutation of [0, m), in and out contiguous
+// [m, row] tables of any element type.  The kernel moves bits, not
+// values.  The inverse is the transpose of the forward, so one kernel
+// serves apply_fixed_perm, permute_rows and their gradients.
 //
 // Replaces the TPU kernel scratch/probe_butterfly.py (run, kernel): Benes
 // butterfly stages over a VMEM-resident array, each stage an exchange of
@@ -14,15 +14,24 @@
 // gather or scatter.  Hopper has both, so the permutation itself is what is
 // ported, not the stage schedule.
 //
-// What bounds it on an H100: bytes.  Each element reads its rank and its
-// payloads once (coalesced) and writes each payload once to the rank's
-// position (scattered stores, which L2 merges into sectors).  The forward
-// is a scatter, not a gather by the inverse rank, so no inverse has to be
-// built or stored; the scattered side is the store, whose latency the card
-// does not wait for.  The rank is read once for all payloads; the switch on
-// a payload's element size is uniform across the block.  A rank outside
-// [0, m) is skipped (forward) or reads as 0 (inverse), so a bad rank cannot
-// write out of bounds.
+// What bounds it on an H100: bytes, and the scattered side's transactions.
+// Each index reads its rank once and its row once, and writes the row
+// once; one side is coalesced, the other scattered (the store in the
+// forward, the load in the inverse).  A scattered access of 4 bytes costs
+// an L2 transaction all the same as one of 16, so the payloads of one
+// element size travel together as the columns of one table: with four
+// float32 payloads one 16-byte access replaces four 4-byte ones.  A row
+// moves in its widest aligned words (16, 8, 4, 2 or 1 bytes).  Of the two
+// ways to run a forward permutation, a scatter by the rank and a gather by
+// its inverse (this kernel's inverse mode), the gather was the faster on
+// an H100 at every size timed (PERF.md): its stores are coalesced, and its
+// scattered loads are independent, so the card keeps many in flight.  The
+// callers on the training paths hold the inverse rank (the banded
+// layouts, the composite pull-to-push rank) and run every permutation as
+// a gather.  The scatter stays for apply_fixed_perm, whose contract (JAX's)
+// gives the rank alone: building its inverse would itself be a scatter by
+// the rank.  A rank outside [0, m) is skipped (forward) or reads as zeros
+// (inverse), so a bad rank cannot write out of bounds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,83 +39,75 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxPayloads = 16;
 
-// The payload pointers and element sizes travel by value in the kernel's
-// parameters.
-struct Payloads {
-  const void* in[kMaxPayloads];
-  void* out[kMaxPayloads];
-  int size[kMaxPayloads];  // bytes per element: 1, 2, 4 or 8
-};
+template <int B> struct Word;
+template <> struct Word<1> { using T = uint8_t; };
+template <> struct Word<2> { using T = uint16_t; };
+template <> struct Word<4> { using T = uint32_t; };
+template <> struct Word<8> { using T = uint2; };
+template <> struct Word<16> { using T = uint4; };
 
-template <bool kInverse, typename T>
-__device__ __forceinline__ void move_one(const void* in, void* out,
-                                         long long i, int r, bool ok) {
-  const T* src = static_cast<const T*>(in);
-  T* dst = static_cast<T*>(out);
-  if (kInverse) {
-    dst[i] = ok ? src[r] : T(0);
-  } else if (ok) {
-    dst[r] = src[i];
-  }
-}
-
-template <bool kInverse>
+// rows of `words` words of B bytes
+template <int B, bool kInverse>
 __global__ void __launch_bounds__(kThreads)
-permute_kernel(const int* __restrict__ rank, Payloads p, int P, long long m) {
+permute_kernel(const int* __restrict__ rank, const void* __restrict__ in_,
+               void* __restrict__ out_, long long words, long long m) {
+  using T = typename Word<B>::T;
+  const T* in = static_cast<const T*>(in_);
+  T* out = static_cast<T*>(out_);
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < m; i += stride) {
-    const int r = rank[i];
+    const long long r = rank[i];
     const bool ok = r >= 0 && r < m;
-    for (int q = 0; q < P; ++q) {
-      const void* src = p.in[q];
-      void* dst = p.out[q];
-      switch (p.size[q]) {
-        case 1: move_one<kInverse, uint8_t>(src, dst, i, r, ok); break;
-        case 2: move_one<kInverse, uint16_t>(src, dst, i, r, ok); break;
-        case 4: move_one<kInverse, uint32_t>(src, dst, i, r, ok); break;
-        default: move_one<kInverse, uint64_t>(src, dst, i, r, ok);
-      }
+    if (kInverse) {
+      for (long long w = 0; w < words; ++w)
+        out[i * words + w] = ok ? in[r * words + w] : T{};
+    } else if (ok) {
+      for (long long w = 0; w < words; ++w)
+        out[r * words + w] = in[i * words + w];
     }
   }
 }
 
-}  // namespace
-
-extern "C" int permute_max_payloads() { return kMaxPayloads; }
-
-// rank: int32 [m] on the device; in_ptrs, out_ptrs: host arrays of P
-// device pointers to [m] arrays (out never aliases in); sizes: host array
-// of the P element sizes in bytes.  Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for bad arguments.
-extern "C" int permute_launch(const void* rank, const void* const* in_ptrs,
-                              void* const* out_ptrs, const int* sizes, int P,
-                              long long m, int inverse, void* stream) {
-  if (P < 1 || P > kMaxPayloads || m < 0 || m > (1LL << 31) - 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Payloads p = {};
-  for (int q = 0; q < P; ++q) {
-    const int b = sizes[q];
-    if (b != 1 && b != 2 && b != 4 && b != 8)
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.in[q] = in_ptrs[q];
-    p.out[q] = out_ptrs[q];
-    p.size[q] = b;
-  }
-  if (m == 0) return 0;
+template <int B>
+int launch(const int* rank, const void* in, void* out, long long words,
+           long long m, int inverse, cudaStream_t s) {
   // enough blocks to fill the card several times over; the grid-stride
   // loop takes the rest
   const long long want = (m + kThreads - 1) / kThreads;
   const unsigned blocks =
       static_cast<unsigned>(want < 132 * 64 ? want : 132 * 64);
+  if (inverse)
+    permute_kernel<B, true><<<blocks, kThreads, 0, s>>>(rank, in, out, words,
+                                                        m);
+  else
+    permute_kernel<B, false><<<blocks, kThreads, 0, s>>>(rank, in, out,
+                                                         words, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// rank: int32 [m] on the device; in, out: [m, words x word] bytes on it,
+// out never aliasing in; word, the bytes of one access: 1, 2, 4, 8 or 16,
+// dividing both addresses.  Returns cudaGetLastError() after the launch (0
+// on success), or cudaErrorInvalidValue for bad arguments.
+extern "C" int permute_launch(const void* rank, const void* in, void* out,
+                              int word, long long words, long long m,
+                              int inverse, void* stream) {
+  if (words < 1 || m < 0 || m > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* r = static_cast<const int*>(rank);
-  if (inverse)
-    permute_kernel<true><<<blocks, kThreads, 0, s>>>(r, p, P, m);
-  else
-    permute_kernel<false><<<blocks, kThreads, 0, s>>>(r, p, P, m);
-  return static_cast<int>(cudaGetLastError());
+  switch (word) {
+    case 1: return launch<1>(r, in, out, words, m, inverse, s);
+    case 2: return launch<2>(r, in, out, words, m, inverse, s);
+    case 4: return launch<4>(r, in, out, words, m, inverse, s);
+    case 8: return launch<8>(r, in, out, words, m, inverse, s);
+    case 16: return launch<16>(r, in, out, words, m, inverse, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

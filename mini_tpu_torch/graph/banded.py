@@ -127,18 +127,17 @@ class BandedLayout:
         return list(torch.split(flat[: self.total_padded],
                                 [len(i) for i in self.ids]))
 
-    def _to_flat(self, cols) -> tuple:
-        """Per-edge columns in the base order -> the flat banded stream,
-        all columns in one permutation launch (pad slots 0)."""
-        from mini_tpu_torch.ops.permute import apply_fixed_perm
+    def _to_flat(self, table: torch.Tensor) -> torch.Tensor:
+        """Per-edge ``[m, H]`` rows in the base order -> the flat banded
+        ``[total_padded, H]`` stream (pad slots 0): padded once, permuted
+        in one launch, each row moved whole."""
+        from mini_tpu_torch.ops.permute import permute_rows
 
-        d = self.dev(cols[0].device)
-        padded = [
-            torch.cat([c, c.new_zeros(self.total_padded - c.shape[0])])
-            for c in cols
-        ]
-        out = apply_fixed_perm(d["banded_rank"], *padded)
-        return out if isinstance(out, tuple) else (out,)
+        d = self.dev(table.device)
+        pad = table.new_zeros(self.total_padded - table.shape[0],
+                              table.shape[1])
+        return permute_rows(d["banded_rank"], torch.cat([table, pad]),
+                            rank_inv=d["inv_rank"])
 
     def permute_to_bands(self, edge_vals: torch.Tensor) -> list:
         """Reorder per-edge values (in this layout's base order: CSC for
@@ -147,26 +146,25 @@ class BandedLayout:
         Returns the K per-band tensors (pad slots 0); ``[m, H]`` values
         give ``[mk, H]`` bands."""
         if edge_vals.ndim == 2:
-            return self.permute_to_bands_multi(
-                *[edge_vals[:, h] for h in range(edge_vals.shape[1])])
-        return self._split_bands(self._to_flat([edge_vals])[0])
+            return self._split_bands(self._to_flat(edge_vals))
+        return self._split_bands(self._to_flat(edge_vals[:, None])[:, 0])
 
     def permute_to_bands_multi(self, *cols: torch.Tensor) -> list:
         """H per-edge columns through ONE permutation launch; returns the K
         per-band ``[mk, H]`` stacks (JAX ``permute_to_bands_multi``)."""
-        flats = [self._split_bands(f) for f in self._to_flat(cols)]
-        return [torch.stack([f[k] for f in flats], dim=1)
-                for k in range(self.K)]
+        return self.permute_to_bands(torch.stack(cols, dim=1))
 
     def permute_from_bands(self, band_vals) -> torch.Tensor:
         """Inverse of :meth:`permute_to_bands`: per-band tensors (or the
-        flat banded stream) back to the base edge order, length m_pad."""
-        from mini_tpu_torch.ops.permute import apply_fixed_perm
+        flat banded stream) back to the base edge order, length m_pad: a
+        gather by the banded rank."""
+        from mini_tpu_torch.ops.permute import permute_rows
 
         if not isinstance(band_vals, torch.Tensor):
             band_vals = torch.cat(list(band_vals))
         d = self.dev(band_vals.device)
-        return apply_fixed_perm(d["inv_rank"], band_vals)[: self.m_pad]
+        return permute_rows(d["banded_rank"], band_vals[:, None], inverse=True,
+                            rank_inv=d["inv_rank"])[: self.m_pad, 0]
 
 
 def row_prefix(bounds: torch.Tensor, offs2d: torch.Tensor) -> torch.Tensor:
@@ -283,6 +281,7 @@ MAX_LAYOUTS = 16
 _HOST_CACHE: OrderedDict = OrderedDict()  # fingerprint -> host arrays
 _LAYOUT_CACHE: OrderedDict = OrderedDict()  # (fp, dir, rows, chunk) -> layout
 # (fp, pull rows, pull chunk, push rows, push chunk, device) -> int32 rank
+# and its inverse
 _COMPOSITE_CACHE: OrderedDict = OrderedDict()
 
 
@@ -306,7 +305,8 @@ def register_host_graph(fingerprint: str, host_arrays: dict) -> None:
             del cache[k]
 
 
-def get_pull_to_push_rank(g, pull: BandedLayout, push: BandedLayout):
+def get_pull_to_push_rank(g, pull: BandedLayout, push: BandedLayout,
+                          inverse: bool = False):
     """Composite static rank: flat pull-band slot -> flat push-band slot of
     the same edge, composed on the host once per layout pair (JAX
     ``get_pull_to_push_rank``): pull slot -> CSC position -> CSR position
@@ -316,8 +316,10 @@ def get_pull_to_push_rank(g, pull: BandedLayout, push: BandedLayout):
 
     Returns an int32 tensor on ``g``'s device of length ``max(total_pull,
     total_push)``: apply it to inputs padded to that length and cut the
-    result to ``push.total_padded``.  None when the host arrays of this
-    graph are unknown."""
+    result to ``push.total_padded``.  ``inverse=True`` returns its inverse
+    permutation (push slot -> pull slot), built beside it on the host and
+    cached with it, so the permutation can run as a gather.  None when the
+    host arrays of this graph are unknown."""
     fp = getattr(g, "fingerprint", None)
     if fp is None or fp not in _HOST_CACHE:
         return None
@@ -339,10 +341,13 @@ def get_pull_to_push_rank(g, pull: BandedLayout, push: BandedLayout):
         used = np.zeros(n_total, bool)
         used[push_rank[:m_pad]] = True
         comp[comp < 0] = np.nonzero(~used)[0]  # the n_total - m_pad pads
-        _COMPOSITE_CACHE[key] = torch.from_numpy(
-            comp.astype(np.int32)).to(device)
+        inv = np.empty_like(comp)
+        inv[comp] = np.arange(n_total)
+        _COMPOSITE_CACHE[key] = tuple(
+            torch.from_numpy(a.astype(np.int32)).to(device)
+            for a in (comp, inv))
     _lru_touch(_COMPOSITE_CACHE, key, MAX_LAYOUTS)
-    return _COMPOSITE_CACHE[key]
+    return _COMPOSITE_CACHE[key][int(inverse)]
 
 
 def get_layout(

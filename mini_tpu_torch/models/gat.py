@@ -17,8 +17,9 @@ heads (then ELU), the last layer averages them.
   trainable with the JAX package's native banded backward: the weight
   cotangent by the banded SDDMM with heads, ``ds_dst`` and ``ds_src`` by
   :func:`banded_heads_segment_sum` straight off the pull and push bands,
-  one fixed permutation (``apply_fixed_perm``) by the composite
-  pull-to-push rank moving the weights and score cotangents between them,
+  one fixed permutation (``permute_rows`` of the ``[w | g_e]`` rows) by
+  the composite pull-to-push rank moving the weights and score cotangents
+  between them,
   and ``g_h`` by the push-direction banded SpMM.
 * ``"fused"`` (``"auto"`` on the CPU): :func:`_gat_fused_heads`, engine
   movers and one multi-head SpMM, differentiated by autograd.  It is the
@@ -51,7 +52,7 @@ from mini_tpu_torch.ops.engine import (
 )
 from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
 from mini_tpu_torch.ops.kernels.spmm_banded import banded_segment_sum
-from mini_tpu_torch.ops.permute import apply_fixed_perm
+from mini_tpu_torch.ops.permute import permute_rows
 from mini_tpu_torch.ops.spmm import (
     _apply_banded,
     _band,
@@ -226,21 +227,19 @@ class _GatBandedLayer(torch.autograd.Function):
         ds_dst = banded_heads_segment_sum(layout, g_bands)
 
         # one permutation moves w and g_e from pull-band to push-band
-        # order; ghost and pad slots are zeroed first, so they come out as
-        # no-ops in the push streams
+        # order, as the rows [w | g_e] of one table; ghost and pad slots
+        # are zeroed first, so they come out as no-ops in the push streams
         valid = torch.cat(dev["valid"])[:, None]
-        wflat = torch.where(valid, torch.cat(w_bands), 0.0)
-        gflat = torch.where(valid, torch.cat(g_bands), 0.0)
-        n_comp = comp.shape[0]
-
-        def pad(c):
-            return torch.cat([c, c.new_zeros(n_comp - c.shape[0])])
-
-        outs = apply_fixed_perm(
-            comp, *[pad(wflat[:, h]) for h in range(H)],
-            *[pad(gflat[:, h]) for h in range(H)])
-        w_push = layout_b._split_bands(torch.stack(outs[:H], dim=-1))
-        g_push = layout_b._split_bands(torch.stack(outs[H:], dim=-1))
+        n_pull = valid.shape[0]
+        table = hws[0].new_empty(comp.shape[0], 2 * H)
+        table[n_pull:] = 0
+        torch.where(valid, torch.cat([torch.cat(wg, dim=1) for wg in
+                                      zip(w_bands, g_bands)]),
+                    table.new_zeros(()), out=table[:n_pull])
+        push = permute_rows(comp, table, rank_inv=get_pull_to_push_rank(
+            g, layout, layout_b, inverse=True))
+        w_push = layout_b._split_bands(push[:, :H])
+        g_push = layout_b._split_bands(push[:, H:])
         ds_src = banded_heads_segment_sum(layout_b, g_push)
 
         go_sd = Q if mdt is None else Q.to(mdt)

@@ -6,6 +6,13 @@ headers), so one nvcc call takes seconds.  The library goes into
 and the flags, so an edited source is rebuilt and a stale library is never
 loaded.  With no nvcc there is no kernel: :func:`load` raises
 ``RuntimeError`` and nothing falls back to a plain version.
+
+The launch path.  A wrapper binds each C entry once, at its first launch
+(:func:`bind`: the library built and loaded, ``argtypes`` and ``restype``
+set), and keeps the bound function in a module-level name; every later
+launch is one call of it.  ``stream`` gives the current stream of a
+device as a raw handle, without building a ``torch.cuda.Stream`` object
+per call.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -92,14 +101,25 @@ def build(name: str) -> str:
     return out
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built at first use.
-    ``signatures`` maps each C function to its (argtypes, restype)."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built at first use."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(build(name))
-        for fn, (argtypes, restype) in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        _LIBS[name] = lib
+        lib = _LIBS[name] = ctypes.CDLL(build(name))
     return lib
+
+
+def bind(name: str, fn: str, argtypes: list, restype=ctypes.c_int):
+    """The C entry ``fn`` of library ``name`` with its argument and result
+    types set: bound once, then called per launch."""
+    entry = getattr(load(name), fn)
+    entry.argtypes = argtypes
+    entry.restype = restype
+    return entry
+
+
+# stream(device_index) -> int: the raw handle of that device's current CUDA
+# stream, what ``torch.cuda.current_stream(d).cuda_stream`` gives without
+# the Stream object that call builds per call (``chip_smoke.py`` times
+# both); None in a build of torch without CUDA, where no launch happens.
+stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)

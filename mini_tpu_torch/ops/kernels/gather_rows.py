@@ -10,6 +10,9 @@ SpMM path; the kernel moves bytes), and the result is ``[M, F]`` of the
 table's dtype.  Every band gather of the banded SpMM, SDDMM and GAT layer
 runs it.
 
+The kernel moves 16-byte (or narrower) vectors by threads, with
+streaming stores (see the source).
+
 :func:`gather_rows` dispatches by device: a CPU tensor takes
 :func:`gather_rows_plain` (``torch.index_select``); a CUDA tensor launches
 the kernel or raises.  Indices must lie in ``[0, W)``: the plain version
@@ -24,17 +27,10 @@ import torch
 
 from mini_tpu_torch.ops.kernels import _build, refuse_grad
 
-_SIGNATURES = {
-    # (idx, table, out, M, W, row_bytes, stream) -> error
-    "gather_rows_launch": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-         ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-}
+_I32 = torch.int32
 
 launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+_launch = None  # the bound C entry, set at the first launch
 
 
 def _check(table, idx):
@@ -53,31 +49,37 @@ def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[j] = table[idx[j]]`` (see module doc).  On CUDA tensors this
-    launches ``csrc/gather_rows.cu``."""
-    if table.device.type == "cpu":
-        return gather_rows_plain(table, idx)
-    if table.device.type != "cuda":
+    launches ``csrc/gather_rows.cu``.  The per-call path of every band
+    gather: only the checks that guard memory, each in its cheapest
+    form."""
+    if not table.is_cuda:
+        if table.device.type == "cpu":
+            return gather_rows_plain(table, idx)
         raise RuntimeError(f"no gather_rows kernel for {table.device}")
-    refuse_grad("gather_rows", table)
-    _check(table, idx)
-    if idx.device != table.device:
+    if table.requires_grad and torch.is_grad_enabled():
+        refuse_grad("gather_rows", table)
+    dev = table.get_device()
+    if (table.ndim != 2 or idx.dtype != _I32 or idx.ndim != 1
+            or idx.get_device() != dev):
+        _check(table, idx)
         raise ValueError(f"idx must lie on {table.device}")
     table = table.contiguous()
     idx = idx.contiguous()
+    M = idx.shape[0]
     W, F = table.shape
-    out = torch.empty((idx.shape[0], F), dtype=table.dtype,
-                      device=table.device)
-    if out.numel() == 0:
-        return out
-    lib = _build.load("gather_rows", _SIGNATURES)
-    rc = lib.gather_rows_launch(
-        idx.data_ptr(), table.data_ptr(), out.data_ptr(), idx.shape[0], W,
-        F * table.element_size(),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
-                           f"{rc}")
-    global launches
-    launches += 1
+    out = table.new_empty((M, F))
+    if M and F:
+        global _launch, launches
+        if _launch is None:
+            # (idx, table, out, M, W, row_bytes, stream) -> error
+            _launch = _build.bind("gather_rows", "gather_rows_launch", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_void_p])
+        rc = _launch(idx.data_ptr(), table.data_ptr(), out.data_ptr(), M, W,
+                     F * table.element_size(), _build.stream(dev))
+        if rc:
+            raise RuntimeError(f"gather_rows kernel launch failed: CUDA "
+                               f"error {rc}")
+        launches += 1
     return out

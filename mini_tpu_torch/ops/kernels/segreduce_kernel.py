@@ -23,17 +23,8 @@ from mini_tpu_torch.ops.segment import identity_for
 OPS = ("min", "max", "sum", "bor")
 _OP_CODE = {"min": 0, "max": 1, "sum": 2, "bor": 3}
 _DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
-_SIGNATURES = {
-    # (offsets, vals, out, n, dtype, op, ident_f, ident_i, stream) -> error
-    "segreduce_launch": (
-        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
-         ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-}
-
 launches = 0  # kernel launches since the last reset (see chip_smoke.py)
+_launch = None  # the bound C entry, set at the first launch
 
 
 def default_identity(op: str, dtype: torch.dtype):
@@ -98,29 +89,36 @@ def segment_reduce(
     """out[v] = op(vals[offsets[v]:offsets[v+1]]) for contiguous sorted
     segments, ``op`` in min/max/sum/bor, int32 or float32 values.  On a
     CUDA tensor this launches ``csrc/segreduce.cu``."""
-    if vals.device.type == "cpu":
-        return segment_reduce_plain(offsets, dsts, vals, op, identity)
-    if vals.device.type != "cuda":
+    if not vals.is_cuda:
+        if vals.device.type == "cpu":
+            return segment_reduce_plain(offsets, dsts, vals, op, identity)
         raise RuntimeError(f"no segment_reduce kernel for {vals.device}")
     refuse_grad("segment_reduce", vals)
+    dev = vals.get_device()
     _check(offsets, vals, op)
-    if offsets.device != vals.device or offsets.dtype != torch.int32:
+    if offsets.get_device() != dev or offsets.dtype != torch.int32:
         raise TypeError("offsets must be int32 on the values' device")
     if identity is None:
         identity = default_identity(op, vals.dtype)
     offsets = offsets.contiguous()
     vals = vals.contiguous()
     n_pad = offsets.shape[0] - 1
-    out = torch.empty(n_pad, dtype=vals.dtype, device=vals.device)
-    lib = _build.load("segreduce", _SIGNATURES)
-    rc = lib.segreduce_launch(
+    out = vals.new_empty(n_pad)
+    global _launch, launches
+    if _launch is None:
+        # (offsets, vals, out, n, dtype, op, ident_f, ident_i, stream)
+        # -> error
+        _launch = _build.bind("segreduce", "segreduce_launch", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_longlong,
+            ctypes.c_void_p])
+    rc = _launch(
         offsets.data_ptr(), vals.data_ptr(), out.data_ptr(), n_pad,
         _DTYPE_CODE[vals.dtype], _OP_CODE[op], float(identity),
         int(identity) if vals.dtype == torch.int32 else 0,
-        torch.cuda.current_stream(vals.device).cuda_stream,
+        _build.stream(dev),
     )
     if rc != 0:
         raise RuntimeError(f"segreduce kernel launch failed: CUDA error {rc}")
-    global launches
     launches += 1
     return out

@@ -51,31 +51,12 @@ from mini_tpu_torch.ops.kernels import _build, refuse_grad
 PRECISIONS = ("split", "highest", "fast")
 MIN_CHUNK = 128  # fewest slots of the virtual order per walker
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SIGNATURES = {
-    # (msg_ptrs, K, bounds, offs2d, prefix, out, carry, n_tiles, F, dtype,
-    #  vector, lanes, chunk, n_walkers, fix_lanes, stream) -> error
-    "banded_segment_sum_launch": (
-        [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, H,
-    #  msg_dtype, y_dtype, stream) -> error
-    "banded_sddmm_launch": (
-        [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-        ctypes.c_int,
-    ),
-    "banded_max_bands": ([], ctypes.c_int),
-}
-
 # kernel launches since the last reset (see chip_smoke.py), per wrapper
 launches = 0  # banded_segment_sum
 sddmm_launches = 0  # banded_sddmm
+# the bound C entries and the kernel's band limit, set at the first launch
+_sum_launch = _sddmm_launch = None
+_max_bands = 0
 
 
 def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
@@ -131,12 +112,14 @@ def _segment_ids(bounds, offs2d, k) -> torch.Tensor:
     return torch.repeat_interleave(rows, ends - starts)
 
 
-def _device_of(msgs, name: str) -> torch.device:
-    """The streams' device: ``cpu``, or ``cuda`` for a kernel launch."""
-    device = msgs[0].device
-    if device.type not in ("cpu", "cuda"):
-        raise RuntimeError(f"no {name} kernel for {device}")
-    return device
+def _on_card(msgs, name: str) -> bool:
+    """True for CUDA streams (a kernel launch), False for CPU ones (the
+    plain version); raises for other devices."""
+    if msgs[0].is_cuda:
+        return True
+    if msgs[0].device.type != "cpu":
+        raise RuntimeError(f"no {name} kernel for {msgs[0].device}")
+    return False
 
 
 def _check_cuda(bounds, offs2d, tensors, device) -> None:
@@ -149,13 +132,25 @@ def _check_cuda(bounds, offs2d, tensors, device) -> None:
             raise ValueError(f"all inputs must lie on {device}")
 
 
-def _load(K: int):
-    lib = _build.load("spmm_banded", _SIGNATURES)
-    if K > lib.banded_max_bands():
-        raise ValueError(
-            f"{K} bands exceed the kernel's {lib.banded_max_bands()}"
-        )
-    return lib
+def _bind(K: int) -> None:
+    """Bind the library's entries at the first launch; check K."""
+    global _sum_launch, _sddmm_launch, _max_bands
+    if _sum_launch is None:
+        P, I, V = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
+        # (msg_ptrs, K, bounds, offs2d, prefix, out, carry, n_tiles, F,
+        #  dtype, vector, lanes, chunk, n_walkers, fix_lanes, stream)
+        _sum_launch = _build.bind(
+            "spmm_banded", "banded_segment_sum_launch",
+            [ctypes.POINTER(P), I, V, V, V, V, V, I, I, I, I, I, I, I, I, V])
+        # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, H,
+        #  msg_dtype, y_dtype, stream)
+        _sddmm_launch = _build.bind(
+            "spmm_banded", "banded_sddmm_launch",
+            [ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong), I, V, V,
+             V, V, I, I, I, I, I, V])
+        _max_bands = _build.bind("spmm_banded", "banded_max_bands", [])()
+    if K > _max_bands:
+        raise ValueError(f"{K} bands exceed the kernel's {_max_bands}")
 
 
 def banded_segment_sum_plain(
@@ -345,7 +340,7 @@ def segment_sum_cuda(
                          f" on {device}")
     row_prefix = row_prefix.contiguous()
     K = len(msgs)
-    lib = _load(K)
+    _bind(K)
     F = msgs[0].shape[1]
     vector = _vector_ok(msgs)
     lanes, chunk, fix_lanes = kernel_plan(F, msgs[0].element_size(), vector)
@@ -355,11 +350,11 @@ def segment_sum_cuda(
     carry = torch.empty(n_walkers * 2 * F, dtype=torch.float32,
                         device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
-    rc = lib.banded_segment_sum_launch(
+    rc = _sum_launch(
         ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), row_prefix.data_ptr(),
         out.data_ptr(), carry.data_ptr(), n_tiles, F,
         _DTYPE_CODE[msgs[0].dtype], int(vector), lanes, chunk, n_walkers,
-        fix_lanes, torch.cuda.current_stream(device).cuda_stream,
+        fix_lanes, _build.stream(device.index),
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -379,7 +374,7 @@ def banded_segment_sum(
     ``csrc/spmm_banded.cu`` with ``row_prefix`` as its schedule
     (``BandedLayout.dev()["row_prefix"]``; built in the call when None);
     on CPU tensors it is the plain version, which needs no schedule."""
-    if _device_of(msgs, "banded_segment_sum").type == "cpu":
+    if not _on_card(msgs, "banded_segment_sum"):
         return banded_segment_sum_plain(bounds, offs2d, msgs, precision,
                                         edge_chunk)
     out = segment_sum_cuda("banded_segment_sum", bounds, offs2d, msgs,
@@ -435,7 +430,7 @@ def banded_sddmm(
     tighter than the TPU twin's 3-pass bf16 hi/lo ``split`` (about 1e-5
     relative).  On CUDA tensors this launches ``csrc/spmm_banded.cu``'s
     ``banded_sddmm_launch``, one launch for all heads."""
-    if _device_of(msgs, "banded_sddmm").type == "cpu":
+    if not _on_card(msgs, "banded_sddmm"):
         return banded_sddmm_plain(bounds, offs2d, msgs, y, precision,
                                   edge_chunk, heads)
     device = msgs[0].device
@@ -447,15 +442,15 @@ def banded_sddmm(
     bounds = bounds.contiguous()
     offs2d = offs2d.contiguous()
     K = len(msgs)
-    lib = _load(K)
+    _bind(K)
     lens = [int(m.shape[0]) for m in msgs]
     out = torch.empty(sum(lens), heads, dtype=torch.float32, device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
-    rc = lib.banded_sddmm_launch(
+    rc = _sddmm_launch(
         ptrs, (ctypes.c_longlong * K)(*lens), K, bounds.data_ptr(),
         offs2d.data_ptr(), y.data_ptr(), out.data_ptr(), offs2d.shape[0],
         msgs[0].shape[1], heads, _DTYPE_CODE[msgs[0].dtype],
-        _DTYPE_CODE[y.dtype], torch.cuda.current_stream(device).cuda_stream,
+        _DTYPE_CODE[y.dtype], _build.stream(device.index),
     )
     if rc != 0:
         raise RuntimeError(f"banded_sddmm kernel launch failed: CUDA error "

@@ -57,9 +57,9 @@ def segment_sum(
     """``out[v] = sum(msgs[offsets[v]:offsets[v+1]])`` in float32 (see
     module doc).  On a CUDA tensor this launches the one-band segment
     sum of ``csrc/spmm_banded.cu``."""
-    if msgs.device.type == "cpu":
-        return segment_sum_plain(offsets, dsts, msgs)
-    if msgs.device.type != "cuda":
+    if not msgs.is_cuda:
+        if msgs.device.type == "cpu":
+            return segment_sum_plain(offsets, dsts, msgs)
         raise RuntimeError(f"no segment_sum kernel for {msgs.device}")
     bounds, offs2d = _one_band(offsets)
     # with one band the schedule's row prefix is the offsets from 0

@@ -3,9 +3,13 @@
 The JAX package moves per-edge values between static orders (CSR <-> CSC,
 edge order <-> banded order, pull bands <-> push bands) with one
 ``lax.sort`` keyed by the rank, because the TPU has no fast scatter
-(``mini_tpu/ops/permute.py``).  On Hopper the permutation is one launch
-of the ``permute`` kernel (ops/kernels/permute_kernel.py), a scatter by
-the rank, with every payload moved in the same launch.
+(``mini_tpu/ops/permute.py``).  On Hopper the permutation is the
+``permute`` kernel (ops/kernels/permute_kernel.py).  :func:`apply_fixed_perm`
+keeps JAX's signature: a scatter by the rank, the payloads of one element
+size moved as the columns of one table.  :func:`permute_rows` permutes the
+rows of one ``[m, P]`` table for the callers that hold their columns as one
+stack and the rank's inverse (the banded permutes, GAT's backward): every
+direction is then a gather, which the card runs faster than the scatter.
 
 JAX's ``expand_to_edges`` (a delta-cumsum broadcast of per-vertex values
 onto sorted segments) is ported as its result: a gather by the segment id
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from mini_tpu_torch.ops.kernels.permute_kernel import permute
+from mini_tpu_torch.ops.kernels import permute_kernel as _kernel
 
 
 class _FixedPerm(torch.autograd.Function):
@@ -29,12 +33,35 @@ class _FixedPerm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rank, *payloads):
         ctx.save_for_backward(rank)
-        return tuple(permute(rank, payloads))
+        return tuple(_kernel.permute(rank, payloads))
 
     @staticmethod
     def backward(ctx, *cts):
         (rank,) = ctx.saved_tensors
-        return (None, *permute(rank, cts, inverse=True))
+        return (None, *_kernel.permute(rank, cts, inverse=True))
+
+
+def _rows(rank, rank_inv, table, inverse):
+    """``table`` permuted by ``rank`` (``inverse``: by its transpose), as a
+    gather: by ``rank`` for the inverse, by ``rank_inv`` for the forward."""
+    return _kernel.permute_rows(rank if inverse else rank_inv, table,
+                                inverse=True)
+
+
+class _PermuteRows(torch.autograd.Function):
+    """A float table's rows through the permutation kernel; the gradient
+    is the permutation the other way."""
+
+    @staticmethod
+    def forward(ctx, rank, rank_inv, table, inverse):
+        ctx.ranks = (rank, rank_inv)
+        ctx.inverse = inverse
+        return _rows(rank, rank_inv, table, inverse)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rank, rank_inv = ctx.ranks
+        return None, None, _rows(rank, rank_inv, ct, not ctx.inverse), None
 
 
 def apply_fixed_perm(rank: torch.Tensor, *payloads: torch.Tensor):
@@ -46,5 +73,20 @@ def apply_fixed_perm(rank: torch.Tensor, *payloads: torch.Tensor):
     if payloads and all(p.dtype.is_floating_point for p in payloads):
         outs = _FixedPerm.apply(rank, *payloads)
     else:
-        outs = tuple(permute(rank, payloads))
+        outs = tuple(_kernel.permute(rank, payloads))
     return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def permute_rows(rank: torch.Tensor, table: torch.Tensor,
+                 inverse: bool = False, *,
+                 rank_inv: torch.Tensor) -> torch.Tensor:
+    """The rows of a ``[m, P]`` table permuted: ``out[rank[i]] =
+    table[i]``, or with ``inverse`` ``out[i] = table[rank[i]]``; one
+    launch, each row moved whole.  ``rank_inv``, the inverse permutation
+    of ``rank``, makes the forward (and the inverse's gradient) a gather
+    by it: coalesced stores and scattered loads, which the card runs
+    faster than the scatter (PERF.md).  Float tables are
+    differentiable."""
+    if table.dtype.is_floating_point:
+        return _PermuteRows.apply(rank, rank_inv, table, inverse)
+    return _rows(rank, rank_inv, table, inverse)

@@ -262,3 +262,29 @@ def test_init_and_layer_choice(monkeypatch):
     assert calls == [1, 1, 1]
     with pytest.raises(ValueError, match="attn"):
         tgat.gat_forward(p1, gt, xt, attn="nope")
+
+
+@pytest.mark.parametrize("bands", [1, 3])
+def test_banded_backward_moves_one_record_table(monkeypatch, bands):
+    """The banded backward moves the weights and score cotangents from
+    pull to push bands as the rows of one ``[n_comp, 2H]`` table: one
+    ``permute_rows`` a layer, run as a gather by the composite rank's
+    inverse; its gradients still match JAX's banded (interpret) path at
+    tests/test_models.py:142-144's tolerance."""
+    calls = []
+    real = tgat.permute_rows
+
+    def spy(rank, table, inverse=False, rank_inv=None):
+        calls.append((tuple(table.shape), inverse, rank_inv is not None))
+        return real(rank, table, inverse=inverse, rank_inv=rank_inv)
+
+    monkeypatch.setattr(tgat, "permute_rows", spy)
+    _, want = jax_run(bands, "banded", grads=True)
+    _, got = port_run(monkeypatch, bands, "banded")
+    gt = setup(bands)[2]
+    lp = tbanded.get_layout(gt, "pull", row_bytes=512)
+    lb = tbanded.get_layout(gt, "push", row_bytes=512)
+    n_comp = max(lp.total_padded, lb.total_padded)
+    assert calls == [((n_comp, 4), False, True)] * (len(DIMS) - 1)
+    for a, b in zip(want, got):
+        np.testing.assert_allclose(b, a, rtol=5e-3, atol=5e-5)

@@ -175,3 +175,156 @@ def test_band_gathers_match_jax(monkeypatch, direction, dtype):
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a.astype(jnp.float32)),
                                       b.float().numpy())
+
+
+# -- the kernel's host side --------------------------------------------------
+
+
+def fake_gather_launch(idx_p, table_p, out_p, M, W, row_bytes, stream):
+    """``csrc/gather_rows.cu``'s gather_rows_launch in NumPy, on the host
+    memory its pointers name: a zero row for an index outside [0, W)."""
+    import ctypes
+
+    def mem(ptr, n, ct=ctypes.c_uint8):
+        return np.ctypeslib.as_array((ct * n).from_address(ptr))
+
+    idx = mem(idx_p, M, ctypes.c_int32)
+    table = mem(table_p, W * row_bytes).reshape(W, row_bytes)
+    out = mem(out_p, M * row_bytes).reshape(M, row_bytes)
+    ok = (idx >= 0) & (idx < W)
+    out[:] = 0
+    out[ok] = table[idx[ok]]
+    return 0
+
+
+@pytest.mark.parametrize("F,dtype", [
+    (128, torch.float32), (40, torch.float32), (33, torch.bfloat16),
+    (64, torch.bfloat16), (5, torch.int32),
+])
+def test_launch_arguments(monkeypatch, F, dtype):
+    """The launch path's arguments to the C entry (pointers, sizes, the
+    stream), with the entry emulated on CPU memory: index_select where
+    indices are in range, zero rows elsewhere, one launch counted."""
+    from mini_tpu_torch.ops.kernels import _build
+
+    monkeypatch.setattr(kg, "_launch", fake_gather_launch)
+    monkeypatch.setattr(_build, "stream", lambda device_index: 0)
+    rng = np.random.RandomState(F)
+    table = torch.from_numpy(rng.randn(300, F).astype(np.float32)).to(dtype)
+    idx = torch.from_numpy(rng.randint(-20, 320, 1000).astype(np.int32))
+    before = kg.launches
+    got = kg.gather_rows(on_card(table), on_card(idx))
+    assert kg.launches == before + 1
+    ok = (idx >= 0) & (idx < 300)
+    want = torch.where(ok[:, None], table[idx.clamp(0, 299).long()],
+                       torch.zeros((), dtype=dtype))
+    assert got.dtype == dtype and torch.equal(got, want)
+    with pytest.raises(TypeError):
+        kg.gather_rows(on_card(table), on_card(idx.long()))
+    with pytest.raises(ValueError):  # the indices on another device
+        kg.gather_rows(on_card(table), idx)
+
+
+class OnCard(torch.Tensor):
+    """A CPU tensor that says it is a CUDA one: it reaches a wrapper's
+    launch path on a machine without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    def get_device(self):
+        return 0
+
+
+def on_card(t):
+    return torch.Tensor._make_subclass(OnCard, t)
+
+
+def wrapper_calls():
+    """(name, module, counter, call) of every kernel wrapper, each called
+    on small CPU tensors; ``call(wrap)`` wraps its tensor arguments."""
+    from mini_tpu_torch.ops.kernels import permute_kernel as kp
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+    from mini_tpu_torch.ops.kernels import spmm_kernel as k4
+
+    rng = np.random.RandomState(0)
+    table = torch.from_numpy(rng.randn(64, 8).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 64, 100).astype(np.int32))
+    rank = torch.from_numpy(rng.permutation(100).astype(np.int32))
+    pay = torch.from_numpy(rng.randn(100).astype(np.float32))
+    offsets = torch.arange(0, 257, 2, dtype=torch.int32)
+    dsts = torch.arange(128, dtype=torch.int32).repeat_interleave(2)
+    vals = torch.from_numpy(rng.randn(256).astype(np.float32))
+    msgs = torch.from_numpy(rng.randn(256, 8).astype(np.float32))
+    return [
+        ("gather_rows", kg, "launches",
+         lambda w: kg.gather_rows(w(table), w(idx))),
+        ("permute", kp, "launches",
+         lambda w: kp.permute(w(rank), [w(pay), w(pay.double())])),
+        ("permute_rows", kp, "launches",
+         lambda w: kp.permute_rows(w(rank), w(table[:50].reshape(100, 4)))),
+        ("segment_reduce", k1, "launches",
+         lambda w: k1.segment_reduce(w(offsets), w(dsts), w(vals), "max")),
+        ("segment_sum", k4, "launches",
+         lambda w: k4.segment_sum(w(offsets), w(dsts), w(msgs))),
+        ("banded_segment_sum", k2, "launches",
+         lambda w: k2.banded_segment_sum(
+             w(offsets[::128].reshape(1, -1)),
+             w(offsets[:-1].reshape(1, 1, 128)), [w(msgs)], edge_chunk=128,
+             row_prefix=w(offsets))),
+        ("banded_sddmm", k2, "sddmm_launches",
+         lambda w: k2.banded_sddmm(
+             w(offsets[::128].reshape(1, -1)),
+             w(offsets[:-1].reshape(1, 1, 128)), [w(msgs)],
+             w(msgs[:128]), edge_chunk=128)),
+    ]
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "permute", "permute_rows",
+                                  "segment_reduce", "segment_sum",
+                                  "banded_segment_sum", "banded_sddmm"])
+def test_cpu_tensors_never_load_a_library(monkeypatch, name):
+    """On CPU tensors every wrapper runs its plain version: nothing is
+    built, loaded or bound, and no launch is counted."""
+    from mini_tpu_torch.ops.kernels import _build
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU call reached the kernel library")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "bind", refuse)
+    _, mod, counter, call = next(c for c in wrapper_calls() if c[0] == name)
+    before = getattr(mod, counter)
+    out = call(lambda t: t)
+    assert out is not None and getattr(mod, counter) == before
+
+
+@pytest.mark.parametrize("name", ["gather_rows", "permute", "permute_rows",
+                                  "segment_reduce", "segment_sum",
+                                  "banded_segment_sum", "banded_sddmm"])
+def test_cuda_call_without_nvcc_raises(monkeypatch, tmp_path, name):
+    """A CUDA tensor launches the kernel or raises: with no nvcc the first
+    launch fails to build its library and the error reaches the caller;
+    no plain version stands in and no launch is counted."""
+    from mini_tpu_torch.ops.kernels import _build
+    from mini_tpu_torch.ops.kernels import permute_kernel as kp
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_LIBS", {})
+    for mod, attr in ((kg, "_launch"), (kp, "_launch"), (k1, "_launch"),
+                      (k2, "_sum_launch")):
+        monkeypatch.setattr(mod, attr, None)
+    _, mod, counter, call = next(c for c in wrapper_calls() if c[0] == name)
+    before = getattr(mod, counter)
+    with pytest.raises(RuntimeError, match="nvcc was not found"):
+        call(on_card)
+    assert getattr(mod, counter) == before
+    assert not (tmp_path / "build").exists()

@@ -211,3 +211,200 @@ def test_composite_cache_dropped_with_its_graph():
     assert not any(k in tbanded._COMPOSITE_CACHE for k in mine)
     assert not any(k[0] == g0.fingerprint for k in tbanded._LAYOUT_CACHE)
     assert tbanded.get_pull_to_push_rank(g0, lp, lb) is None
+
+
+# -- the kernel's host side: records, the C entry's arguments ----------------
+
+DTYPES = {"bool": torch.bool, "bf16": torch.bfloat16, "f16": torch.float16,
+          "f32": torch.float32, "f64": torch.float64, "i64": torch.int64}
+JAX_DTYPES = ("bool", "bf16", "f16", "f32")  # JAX without x64 holds these
+
+
+def payload(kind, m, seed):
+    x = np.random.RandomState(seed).randn(m).astype(np.float32) * 100
+    t = torch.from_numpy(x)
+    if kind == "bool":
+        return t > 0
+    if kind == "i64":
+        return t.long() << 33
+    return t.to(DTYPES[kind])
+
+
+def fake_permute_launch(rank_p, in_p, out_p, word, words, m, inverse,
+                        stream):
+    """``csrc/permute.cu``'s permute_launch in NumPy, reading and writing
+    the host memory its pointers name: rows of ``words`` words of
+    ``word`` bytes."""
+    import ctypes
+
+    def mem(ptr, n):
+        return np.ctypeslib.as_array((ctypes.c_uint8 * n).from_address(ptr))
+
+    assert word in (1, 2, 4, 8, 16) and in_p % word == 0 and out_p % word == 0
+    rank = np.ctypeslib.as_array((ctypes.c_int32 * m).from_address(rank_p))
+    rows = mem(in_p, m * word * words).reshape(m, -1)
+    out = mem(out_p, rows.size).reshape(m, -1)
+    if inverse:
+        out[:] = rows[rank]
+    else:
+        out[rank] = rows
+    return 0
+
+
+def to_jax(kind, t):
+    if kind == "bf16":
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+@pytest.fixture
+def emulated(monkeypatch):
+    """The wrappers' CUDA path on CPU tensors, the C entry emulated."""
+    from mini_tpu_torch.ops.kernels import _build
+
+    monkeypatch.setattr(kp, "_on_card", lambda rank, tensors, name: True)
+    monkeypatch.setattr(kp, "_launch", fake_permute_launch)
+    monkeypatch.setattr(_build, "stream", lambda device_index: 0)
+    monkeypatch.setattr(kp, "launches", 0)
+
+
+@pytest.mark.parametrize("kinds", [
+    ["f32"], ["f32"] * 2, ["f32"] * 3, ["f32"] * 4, ["f32"] * 5,
+    ["bool"] * 16, ["bf16"] * 8 + ["f16"], ["f64", "i64", "f64"],
+    ["bool", "bf16", "f16", "f32", "f64", "i64"],
+    ["bool", "bf16", "f32", "f64"] * 4,
+])
+def test_records_match_plain_and_jax(emulated, kinds):
+    """Every mix of dtypes and P from 1 to 16 through the kernel's host
+    side (one table, and one launch, per element size; the C entry's
+    arguments; the outputs as columns of the tables) equals
+    ``permute_plain``, and JAX's ``apply_fixed_perm`` for the dtypes JAX
+    holds, bitwise, both ways."""
+    m = 3001
+    rank = np.random.RandomState(len(kinds)).permutation(m).astype(np.int32)
+    inv = np.argsort(rank).astype(np.int32)
+    r = torch.from_numpy(rank)
+    pays = [payload(k, m, i) for i, k in enumerate(kinds)]
+    n_tables = len({p.element_size() for p in pays})
+    for inverse in (False, True):
+        before = kp.launches
+        got = kp.permute(r, pays, inverse=inverse)
+        assert kp.launches - before == n_tables
+        want = kp.permute_plain(r, pays, inverse=inverse)
+        for k, a, b in zip(kinds, got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), (k, inverse)
+        jp = [(k, p) for k, p in zip(kinds, pays) if k in JAX_DTYPES]
+        if jp:
+            jr = jnp.asarray(inv if inverse else rank)
+            js = j_apply_fixed_perm(jr, *[to_jax(k, p) for k, p in jp])
+            js = js if isinstance(js, tuple) else (js,)
+            outs = [a for k, a in zip(kinds, got) if k in JAX_DTYPES]
+            for (k, _), a, b in zip(jp, outs, js):
+                assert str(b.dtype) == {"bool": "bool", "bf16": "bfloat16",
+                                        "f16": "float16",
+                                        "f32": "float32"}[k]
+                np.testing.assert_array_equal(a.float().numpy(),
+                                              np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("P,dtype", [(1, torch.float32), (2, torch.float32),
+                                     (3, torch.float32), (4, torch.float32),
+                                     (8, torch.float32), (5, torch.bfloat16),
+                                     (3, torch.uint8)])
+def test_permute_rows_matches_plain(emulated, P, dtype):
+    """``permute_rows`` on an ``[m, P]`` table (rows of 1 to 32 bytes, moved
+    in their widest aligned words) equals its plain version both ways, and
+    a forward with the inverse rank at hand is the same gather."""
+    m = 2000
+    rng = np.random.RandomState(P)
+    rank = torch.from_numpy(rng.permutation(m).astype(np.int32))
+    table = torch.from_numpy(rng.randn(m, P).astype(np.float32) * 50).to(
+        dtype)
+    for inverse in (False, True):
+        got = kp.permute_rows(rank, table, inverse=inverse)
+        assert torch.equal(got, kp.permute_rows_plain(rank, table, inverse))
+    inv = torch.argsort(rank).to(torch.int32)
+    assert torch.equal(kp.permute_rows(inv, table, inverse=True),
+                       kp.permute_rows_plain(rank, table))
+    assert kp.word_bytes(P * table.element_size(), 0) in (1, 2, 4, 8, 16)
+
+
+def test_word_bytes():
+    assert kp.word_bytes(16, 0, 256) == 16
+    assert kp.word_bytes(12, 0, 256) == 4
+    assert kp.word_bytes(32, 0, 8) == 8
+    assert kp.word_bytes(6, 0) == 2
+    assert kp.word_bytes(3, 0) == 1
+
+
+@pytest.mark.parametrize("inverse,P", [(False, 1), (False, 3), (True, 1),
+                                       (True, 3)])
+def test_permute_rows_gradient(inverse, P):
+    """The gradient of ``permute_rows`` is the permutation the other way,
+    both directions gathers (by the rank or by its inverse), and equals
+    JAX's VJP of ``apply_fixed_perm`` column by column."""
+    from mini_tpu_torch.ops.permute import permute_rows
+
+    m = 1500
+    rng = np.random.RandomState(7)
+    rank = rng.permutation(m).astype(np.int32)
+    inv = np.argsort(rank).astype(np.int32)
+    x = rng.randn(m, P).astype(np.float32)
+    ct = rng.randn(m, P).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    out = permute_rows(torch.from_numpy(rank), xt, inverse=inverse,
+                       rank_inv=torch.from_numpy(inv))
+    (g,) = torch.autograd.grad(out, [xt], [torch.from_numpy(ct)])
+    jr = jnp.asarray(inv if inverse else rank)
+    def j_perm(*c):  # a tuple for every P (JAX gives one payload bare)
+        out = j_apply_fixed_perm(jr, *c)
+        return out if isinstance(out, tuple) else (out,)
+
+    _, vjp = jax.vjp(j_perm, *[jnp.asarray(x[:, p]) for p in range(P)])
+    want = vjp(tuple(jnp.asarray(ct[:, p]) for p in range(P)))
+    for p in range(P):
+        np.testing.assert_array_equal(g[:, p].numpy(), np.asarray(want[p]))
+        np.testing.assert_array_equal(
+            out[:, p].detach().numpy(),
+            x[inv, p] if not inverse else x[rank, p])
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_path_permutes_are_gathers(emulated, monkeypatch, inverse):
+    """``ops.permute.permute_rows``, the training paths' permutation,
+    launches the kernel only as a gather (its inverse mode), forward and
+    backward, and its result and gradient equal the plain version's."""
+    from mini_tpu_torch.ops.permute import permute_rows
+
+    modes = []
+
+    def spy(*args):
+        modes.append(args[6])
+        return fake_permute_launch(*args)
+
+    monkeypatch.setattr(kp, "_launch", spy)
+    m = 1000
+    rng = np.random.RandomState(11)
+    rank = torch.from_numpy(rng.permutation(m).astype(np.int32))
+    inv = torch.argsort(rank).to(torch.int32)
+    x = torch.from_numpy(rng.randn(m, 4).astype(np.float32)).requires_grad_()
+    ct = torch.from_numpy(rng.randn(m, 4).astype(np.float32))
+    out = permute_rows(rank, x, inverse=inverse, rank_inv=inv)
+    (g,) = torch.autograd.grad(out, [x], [ct])
+    assert modes == [1, 1]
+    assert torch.equal(out, kp.permute_rows_plain(rank, x.detach(), inverse))
+    assert torch.equal(g, kp.permute_rows_plain(rank, ct, not inverse))
+
+
+def test_composite_inverse_cached_with_rank(monkeypatch):
+    """The composite rank's inverse is built with it on the host and
+    cached under the same key."""
+    small_bands(monkeypatch, 3)
+    _, gt = pair(3)
+    lt = [tbanded.get_layout(gt, d, row_bytes=512) for d in ("pull", "push")]
+    comp = tbanded.get_pull_to_push_rank(gt, *lt)
+    inv = tbanded.get_pull_to_push_rank(gt, *lt, inverse=True)
+    assert inv.dtype == torch.int32
+    np.testing.assert_array_equal(inv.numpy()[comp.numpy()],
+                                  np.arange(comp.shape[0]))
+    assert tbanded.get_pull_to_push_rank(gt, *lt, inverse=True) is inv
