@@ -170,6 +170,30 @@ def profiled_ms(fn, device, n: int = 20) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3 / n
 
 
+def profiled_parts(fn, device, parts, n: int = 20) -> dict:
+    """For each of ``parts``, the device time per call (ms) of the kernels
+    whose name holds it, as ``torch.profiler`` records ``n`` calls of
+    ``fn``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(device)
+    return {p: sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and p in e.name)
+            / 1e3 / n for p in parts}
+
+
+def walker_and_fixup(fn, device) -> str:
+    """Kernel 1's two launches apart, for a log line."""
+    split = profiled_parts(fn, device, ("segreduce_walk", "segreduce_fixup"))
+    return (f"walker {split['segreduce_walk']:.4f} ms, fix-up "
+            f"{split['segreduce_fixup']:.4f} ms (torch.profiler)")
+
+
 def host_us(fn, device, n: int = 2000) -> float:
     """Host time of one ``fn()`` call in microseconds: ``n`` calls back to
     back on the host clock, after a warm-up (for a launch, its enqueue)."""
@@ -261,55 +285,9 @@ def phase_kernels(g, hg_big, device):
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
 
     rng = np.random.RandomState(0)
-    m_pad = g.m_pad
     stats = {}
 
-    err1, t1 = 0.0, None
-    ivals = torch.from_numpy(
-        rng.randint(-2**31, 2**31 - 1, m_pad, dtype=np.int64)
-        .astype(np.int32)).to(device)
-    fvals = torch.from_numpy(
-        (rng.rand(m_pad) * 100 - 50).astype(np.float32)).to(device)
-    cases = [(op, ivals) for op in ("min", "max", "bor", "sum")] + [
-        (op, fvals) for op in ("min", "max", "sum")]
-    offsets64, dsts64 = g.col_offsets.long(), g.csc_dsts.long()
-    # read once: the values and the offsets; written once: one per row
-    bnd1 = bound(m_pad * 4 + (g.n_pad + 1) * 4 + g.n_pad * 4)
-    for op, vals in cases:
-        args = (g.col_offsets, g.csc_dsts, vals, op)
-        got = k1.segment_reduce(*args)
-        want = k1.segment_reduce_plain(*args)
-        torch.cuda.synchronize(device)
-        if vals.dtype == torch.float32 and op == "sum":
-            err = float((got - want).abs().max())
-            limit = SUM_TOL * float(want.abs().max())
-            assert err <= limit, (op, err, limit)
-        else:
-            assert torch.equal(got, want), (op, vals.dtype)
-            err = 0.0
-        err1 = max(err1, err)
-        t = timed(lambda: k1.segment_reduce(*args), device)
-        ms = t["ms"]
-        plain_ms = cuda_ms(lambda: k1.segment_reduce_plain(*args), device)
-        if op == "bor":
-            lib = ("none: no PyTorch call reduces by bitwise or", None)
-        elif vals.dtype == torch.float32:
-            lib = library(f"torch.segment_reduce({op})", lambda: (
-                torch.segment_reduce(vals, op, offsets=offsets64, axis=0)),
-                device)
-        else:  # segment_reduce takes floating types only
-            red = {"min": "amin", "max": "amax", "sum": "sum"}[op]
-            lib = library(f"Tensor.scatter_reduce({red})", lambda: (
-                torch.zeros(g.n_pad, dtype=vals.dtype, device=device)
-                .scatter_reduce(0, dsts64, vals, red, include_self=False)),
-                device)
-        log(f"# segment_reduce {op} {str(vals.dtype)[6:]}: err {err:.3g} "
-            f"kernel {ms:.4f} ms ({pct(ms, bnd1)}, {bnd1['bound_ms']:.4f} "
-            f"ms), device {t['device_ms']:.4f} ms ({t['device_how']}); "
-            f"plain {plain_ms:.4f} ms {lib[0]} {lib[1]} ms")
-        if op == "max" and vals.dtype == torch.int32:
-            t1 = (t, plain_ms, lib)  # the BFS advance's or-reduce
-    stats["segment_reduce"] = kernel_stats(err1, t1[0], t1[1], bnd1, t1[2])
+    stats["segment_reduce"] = check_segment_reduce(g, hg_big, rng, device)
 
     layout = get_layout(g, "pull", row_bytes=F_HID * 4)
     dev = layout.dev(device)
@@ -362,16 +340,235 @@ def phase_kernels(g, hg_big, device):
         err2 = max(err2, check_banded_sum(
             f"rmat{MEMORY_SCALE} F={F_OUT} {str(dtype)[6:]}", lay_b, dev_b,
             msgs, device)[0])
-    del msgs, lay_b, dev_b
+    del msgs
     stats["banded_segment_sum"] = kernel_stats(err2, *t2)
 
-    stats["banded_sddmm"] = check_sddmm(layout, dev, rng, device)
+    stats["banded_sddmm"] = check_sddmm(layout, dev, lay_b, dev_b, rng,
+                                        device)
+    del lay_b, dev_b
     stats["segment_sum"] = check_segment_sum(g, rng, device)
     check_launch_path(device)
     stats["gather_rows"] = check_gather(layout, dev, rng, device)
     stats["apply_fixed_perm"] = check_permute(g, rng, device)
     log("# phase 2: kernels match their plain versions")
     return stats
+
+
+def reduce_values(rng, shape, dtype, device):
+    """Random int32 over the whole range, or float32 in [-50, 50)."""
+    import torch
+
+    if dtype == torch.int32:
+        v = rng.randint(-2**31, 2**31 - 1, shape, dtype=np.int64).astype(
+            np.int32)
+    else:
+        v = (rng.rand(*shape) * 100 - 50).astype(np.float32)
+    return torch.from_numpy(v).to(device)
+
+
+def reduce_case(label, offsets, dsts, vals, op, device, time_it=True):
+    """Kernel 1 on one set of values: min, max, bor and the int32 sum
+    bitwise equal to the plain version; the float32 sum within SUM_TOL of
+    it, bitwise equal to the plain emulation of the kernel's schedule and
+    across two launches.  Returns ``(err, timed, bound)``."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+
+    args = (offsets, dsts, vals, op)
+    got = k1.segment_reduce(*args)
+    again = k1.segment_reduce(*args)
+    no_ids = k1.segment_reduce(offsets, None, vals, op)  # built in the call
+    want = k1.segment_reduce_plain(*args)
+    torch.cuda.synchronize(device)
+    assert got.shape == want.shape and got.dtype == want.dtype, label
+    assert torch.equal(got, again), f"{label} {op}: two launches differ"
+    assert torch.equal(got, no_ids), f"{label} {op}: ids built in the call"
+    err, how = 0.0, "bitwise"
+    if vals.dtype == torch.float32 and op == "sum":
+        err = float((got - want).abs().max())
+        limit = SUM_TOL * float(want.abs().max())
+        assert err <= limit, (label, op, err, limit)
+        emulated = k1.segment_reduce_scheduled_plain([offsets], [vals], op)
+        assert torch.equal(got, emulated), f"{label}: not the emulated schedule"
+        how = (f"err {err:.3g} (bound {limit:.3g}), two launches and the "
+               f"emulated schedule bitwise")
+    else:
+        assert torch.equal(got, want), (label, op, vals.dtype)
+    n = offsets.shape[0] - 1
+    cols = 1 if vals.ndim == 1 else vals.shape[1]
+    # read once: the values and the offsets; written once: one per segment
+    bnd = bound(vals.numel() * 4 + (n + 1) * 4 + n * cols * 4,
+                ops=vals.numel())
+    if not time_it:
+        log(f"# segment_reduce {label} {op} {str(vals.dtype)[6:]} "
+            f"{list(vals.shape)}: {how}")
+        return err, None, bnd
+    t = timed(lambda: k1.segment_reduce(*args), device)
+    log(f"# segment_reduce {label} {op} {str(vals.dtype)[6:]} "
+        f"{list(vals.shape)}: {how}; kernel {t['ms']:.4f} ms, device "
+        f"{t['device_ms']:.4f} ms ({pct(t['device_ms'], bnd)}, "
+        f"{bnd['bound_ms']:.4f} ms; {t['device_how']})")
+    return err, t, bnd
+
+
+def check_segment_reduce(g, hg_big, rng, device):
+    """Kernel 1: the seven op and dtype cases on the graph's CSC offsets
+    against the plain version and a library call; ``[m, 2]`` and ``[m, 8]``
+    values against the column-by-column plain version; the star graph (one
+    segment of 99,999 values); empty segments at both ends; the CSC offsets
+    of ``hg_big`` (rmat18); an empty kernel's device time, the floor under
+    any launch; and the K-band entry on the pull and push layouts with 2
+    columns against its plain version, the per-band and per-column launches
+    it replaces, and kernel 2 at F=2."""
+    import ctypes
+
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, from_edges
+    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.ops.kernels import _build
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    m_pad = g.m_pad
+    err1, t1 = 0.0, None
+    ivals = reduce_values(rng, (m_pad,), torch.int32, device)
+    fvals = reduce_values(rng, (m_pad,), torch.float32, device)
+    cases = [(op, ivals) for op in ("min", "max", "bor", "sum")] + [
+        (op, fvals) for op in ("min", "max", "sum")]
+    offsets64, dsts64 = g.col_offsets.long(), g.csc_dsts.long()
+    for op, vals in cases:
+        args = (g.col_offsets, g.csc_dsts, vals, op)
+        err, t, bnd1 = reduce_case(f"rmat{SCALE}", *args, device)
+        err1 = max(err1, err)
+        plain_ms = cuda_ms(lambda: k1.segment_reduce_plain(*args), device)
+        if op == "bor":
+            lib = ("none: no PyTorch call reduces by bitwise or", None)
+        elif vals.dtype == torch.float32:
+            lib = library(f"torch.segment_reduce({op})", lambda: (
+                torch.segment_reduce(vals, op, offsets=offsets64, axis=0)),
+                device)
+        else:  # segment_reduce takes floating types only
+            red = {"min": "amin", "max": "amax", "sum": "sum"}[op]
+            lib = library(f"Tensor.scatter_reduce({red})", lambda: (
+                torch.zeros(g.n_pad, dtype=vals.dtype, device=device)
+                .scatter_reduce(0, dsts64, vals, red, include_self=False)),
+                device)
+        log(f"#   plain {plain_ms:.4f} ms {lib[0]} {lib[1]} ms")
+        if op == "max" and vals.dtype == torch.int32:
+            t1 = (t, plain_ms, bnd1, lib)  # the BFS advance's or-reduce
+            log("#   " + walker_and_fixup(
+                lambda: k1.segment_reduce(*args), device))
+
+    for H in (2, 8):
+        for dtype, op in ((torch.float32, "sum"), (torch.int32, "min"),
+                          (torch.int32, "bor")):
+            err1 = max(err1, reduce_case(
+                f"rmat{SCALE}", g.col_offsets, g.csc_dsts,
+                reduce_values(rng, (m_pad, H), dtype, device), op,
+                device)[0])
+    refuses_grad("segment_reduce [m, H]", lambda v: k1.segment_reduce(
+        g.col_offsets, g.csc_dsts, v, "sum"), fvals[:, None].expand(-1, 2))
+
+    # the hub case: one segment of n - 1 values, then empty ones
+    n = 100_000
+    star = GraphSlice.from_host(
+        from_edges(np.arange(1, n), np.zeros(n - 1, np.int64), num_nodes=n),
+        device=device)
+    for dtype, op in ((torch.float32, "sum"), (torch.int32, "max"),
+                      (torch.int32, "sum")):
+        err1 = max(err1, reduce_case(
+            f"star n={n}", star.col_offsets, star.csc_dsts,
+            reduce_values(rng, (star.m_pad,), dtype, device), op, device)[0])
+    del star
+    # empty segments at both ends, a length that is no multiple of 4
+    offs = torch.tensor([0, 0, 0, 5, 5, 700, 701, 9999, 9999, 9999],
+                        dtype=torch.int32, device=device)
+    dsts = torch.repeat_interleave(torch.arange(9, device=device),
+                                   torch.diff(offs.long())).int()
+    for shape in ((9999,), (9999, 5)):
+        for dtype, op in ((torch.float32, "sum"), (torch.int32, "bor"),
+                          (torch.float32, "min")):
+            err1 = max(err1, reduce_case(
+                "empty segments at both ends", offs, dsts,
+                reduce_values(rng, shape, dtype, device), op, device,
+                time_it=False)[0])
+    # 33.6 MB of values: the launch floor no longer hides the share
+    offs_b = torch.from_numpy(hg_big.col_offsets.astype(np.int32)).to(device)
+    dsts_b = torch.from_numpy(hg_big.csc_dsts.astype(np.int32)).to(device)
+    for dtype, op in ((torch.float32, "sum"), (torch.int32, "max")):
+        err1 = max(err1, reduce_case(
+            f"rmat{MEMORY_SCALE}", offs_b, dsts_b,
+            reduce_values(rng, (hg_big.m,), dtype, device), op, device)[0])
+    del offs_b, dsts_b
+
+    empty = _build.bind("segreduce", "empty_launch", [ctypes.c_void_p])
+    floor_ms, how = graph_ms(lambda: empty(_build.stream(device.index)),
+                             device)
+    log(f"# an empty kernel's launch: device {floor_ms:.4f} ms ({how}); "
+        f"kernel 1 is two launches, and its bound at rmat{SCALE} is "
+        f"{bnd1['bound_ms']:.4f} ms")
+
+    # GAT's per-head score cotangent: K bands of [mk, 2] in one launch
+    H = GAT_HEADS
+    for direction in ("pull", "push"):
+        lay = get_layout(g, direction, row_bytes=F_HID * 4)
+        dev = lay.dev(device)
+        bands = [reduce_values(rng, (len(i), H), torch.float32, device)
+                 for i in lay.ids]
+        got = k1.segment_reduce_bands(dev["offsets"], bands, seg=dev["seg"])
+        again = k1.segment_reduce_bands(dev["offsets"], bands,
+                                        seg=dev["seg"])
+        no_ids = k1.segment_reduce_bands(dev["offsets"], bands)
+        want = k1.segment_reduce_bands_plain(dev["offsets"], bands)
+        emulated = k1.segment_reduce_scheduled_plain(dev["offsets"], bands)
+        torch.cuda.synchronize(device)
+        err = float((got - want).abs().max())
+        limit = SUM_TOL * float(want.abs().max())
+        assert err <= limit, (direction, err, limit)
+        assert torch.equal(got, again), "two launches differ"
+        assert torch.equal(got, no_ids), "slots' rows built in the call"
+        assert torch.equal(got, emulated), "not the emulated schedule"
+        err1 = max(err1, err)
+
+        def per_band_and_column():  # what one launch replaces
+            out = None
+            for k, b in enumerate(bands):
+                mk = lay.lens[k]
+                cols = b[:mk].t().contiguous()
+                seg = dev["seg"][k][:mk]
+                r = torch.stack([k1.segment_reduce(dev["offsets"][k], seg, c,
+                                                   "sum") for c in cols],
+                                dim=-1)
+                out = r if out is None else out + r
+            return out
+
+        assert float((per_band_and_column() - want).abs().max()) <= limit
+        real = sum(lay.lens)
+        bnd = bound(real * H * 4 + lay.K * (lay.n_pad + 1) * 4
+                    + lay.n_pad * H * 4, ops=real * H)
+        t = timed(lambda: k1.segment_reduce_bands(
+            dev["offsets"], bands, seg=dev["seg"]), device)
+        t_old = timed(per_band_and_column, device)
+        t_k2 = timed(lambda: k2.banded_segment_sum(
+            dev["bounds"], dev["offs2d"], bands,
+            row_prefix=dev["row_prefix"]), device)
+        plain_ms = cuda_ms(lambda: k1.segment_reduce_bands_plain(
+            dev["offsets"], bands), device, windows=3)
+        log(f"# segment_reduce_bands rmat{SCALE} {direction} K={lay.K} "
+            f"H={H}: err {err:.3g} (bound {limit:.3g}), two launches and the "
+            f"emulated schedule bitwise; one launch {t['ms']:.4f} ms, device "
+            f"{t['device_ms']:.4f} ms ({pct(t['device_ms'], bnd)}, "
+            f"{bnd['bound_ms']:.4f} ms); {lay.K * H} launches per band and "
+            f"column {t_old['ms']:.4f} ms, device {t_old['device_ms']:.4f} "
+            f"ms; banded_segment_sum at F={H} {t_k2['ms']:.4f} ms, device "
+            f"{t_k2['device_ms']:.4f} ms; plain {plain_ms:.4f} ms; "
+            + walker_and_fixup(lambda: k1.segment_reduce_bands(
+                dev["offsets"], bands, seg=dev["seg"]), device))
+    refuses_grad("segment_reduce_bands", lambda *b: k1.segment_reduce_bands(
+        dev["offsets"], b), *bands)
+    return kernel_stats(err1, *t1)
 
 
 def band_messages(layout, dev, F, dtype, rng, device) -> list:
@@ -435,92 +632,99 @@ def check_banded_sum(label, layout, dev, msgs, device):
     return err, t, plain_ms, bnd, lib
 
 
-def check_sddmm(layout, dev, rng, device):
-    """Kernel 3 on the pull layout, F=128, y float32, messages float32 and
-    bf16 (the weight cotangent's operands)."""
+def sddmm_case(label, layout, dev, F, H, msg_dtype, y_dtype, rng, device):
+    """Kernel 3 on one layout and shape: every real slot within DOT_TOL of
+    the plain version, pad slots exactly 0, two launches bitwise equal,
+    bitwise equal to the plain emulation of its schedule, the same with the
+    per-slot rows built in the call.  Returns ``(err, timed, plain_ms,
+    bound)``."""
     import torch
 
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
 
-    x = torch.from_numpy(rng.rand(layout.n_pad, F_HID).astype(np.float32)
+    x = torch.from_numpy(rng.rand(layout.n_pad, F).astype(np.float32)
                          - 0.5).to(device)
-    y = torch.from_numpy(rng.rand(layout.n_pad, F_HID).astype(np.float32)
-                         - 0.5).to(device)
-    real = torch.zeros(layout.total_padded, dtype=torch.bool, device=device)
-    base = 0
-    for k in range(layout.K):
-        real[base: base + int(layout.bounds[k, -1])] = True
-        base += len(layout.ids[k])
-    err3, t3 = 0.0, None
-    real_slots = sum(int(b) for b in layout.bounds[:, -1])
-    meta = layout.K * layout.n_pad * 4 + layout.bounds.size * 4
-    none = ("none: its messages are pre-gathered per band; no one PyTorch "
-            "call dots them with their staircase rows", None)
-
-    def bnd3(elem, H=1):  # messages and y read once, dw written once
-        return bound(real_slots * F_HID * elem + layout.n_pad * F_HID * 4
-                     + layout.total_padded * H * 4 + meta,
-                     ops=2 * real_slots * F_HID)
-
-    for dtype in (torch.float32, torch.bfloat16):
-        msgs = []
-        for k in range(layout.K):
-            lo = k * layout.band_rows
-            hi = min(lo + layout.band_rows, layout.n_pad)
-            msgs.append(torch.index_select(x[lo:hi], 0, dev["ids"][k])
-                        .to(dtype))
-        args = (dev["bounds"], dev["offs2d"], msgs, y)
-        got = k2.banded_sddmm(*args)
-        want = k2.banded_sddmm_plain(*args)
-        mag = k2.banded_sddmm_plain(dev["bounds"], dev["offs2d"],
-                                    [m.abs() for m in msgs], y.abs())
-        torch.cuda.synchronize(device)
-        diff = (got - want).abs()
-        ratio = float((diff / mag.clamp(min=1e-30))[real].max())
-        assert ratio <= DOT_TOL, (dtype, ratio)
-        assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
-        err = float(diff.max())
-        err3 = max(err3, err)
-        t = timed(lambda: k2.banded_sddmm(*args), device)
-        ms = t["ms"]
-        plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args), device,
-                           windows=3)
-        bnd = bnd3(msgs[0].element_size())
-        log(f"# banded_sddmm F={F_HID} {str(dtype)[6:]} K={layout.K}: err "
-            f"{err:.3g} (max per-slot ratio {ratio:.3g}, bound {DOT_TOL}) "
-            f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms), "
-            f"device {t['device_ms']:.4f} ms ({t['device_how']}); plain "
-            f"{plain_ms:.4f} ms")
-        if dtype == torch.float32:
-            t3 = (t, plain_ms, bnd, none)
-    # GAT's weight cotangent: 2 heads, each over its 64 columns, one launch
-    H = 2
+    y = torch.from_numpy(rng.rand(layout.n_pad, F).astype(np.float32)
+                         - 0.5).to(device=device, dtype=y_dtype)
     msgs = [torch.index_select(x[k * layout.band_rows:
-                                 (k + 1) * layout.band_rows], 0, dev["ids"][k])
+                                 (k + 1) * layout.band_rows], 0,
+                               dev["ids"][k]).to(msg_dtype)
             for k in range(layout.K)]
+    real = torch.cat([torch.arange(len(i), device=device) < int(b)
+                      for i, b in zip(layout.ids, layout.bounds[:, -1])])
     args = (dev["bounds"], dev["offs2d"], msgs, y)
-    got = k2.banded_sddmm(*args, heads=H)
+    got = k2.banded_sddmm(*args, heads=H, seg=dev["seg"])
+    again = k2.banded_sddmm(*args, heads=H, seg=dev["seg"])
+    no_seg = k2.banded_sddmm(*args, heads=H)
     want = k2.banded_sddmm_plain(*args, heads=H)
+    emulated = k2.banded_sddmm_scheduled_plain(*args, heads=H)
     mag = k2.banded_sddmm_plain(dev["bounds"], dev["offs2d"],
                                 [m.abs() for m in msgs], y.abs(), heads=H)
     torch.cuda.synchronize(device)
-    assert got.shape == (layout.total_padded, H)
+    assert got.shape == ((layout.total_padded, H) if H > 1
+                         else (layout.total_padded,))
     diff = (got - want).abs()
     ratio = float((diff / mag.clamp(min=1e-30))[real].max())
-    assert ratio <= DOT_TOL, ("heads", ratio)
+    assert ratio <= DOT_TOL, (label, F, H, ratio)
     assert torch.all(got[~real] == 0), "pad slots must be exactly 0"
-    err3 = max(err3, float(diff.max()))
-    t = timed(lambda: k2.banded_sddmm(*args, heads=H), device)
-    ms = t["ms"]
+    assert torch.equal(got, again), f"{label}: two launches differ"
+    assert torch.equal(got, no_seg), f"{label}: rows built in the call"
+    assert torch.equal(got, emulated), f"{label}: not the emulated schedule"
+    lanes, head_lanes = k2._sddmm_plan_for(msgs, y, H)
+    form = (f"{lanes} lanes a slot, {head_lanes} a head" if lanes
+            else "scalar form")
+    real_slots = sum(int(b) for b in layout.bounds[:, -1])
+    # messages, y and the slots' rows read once, dw written once
+    bnd = bound(real_slots * F * msgs[0].element_size()
+                + layout.n_pad * F * y.element_size()
+                + layout.total_padded * (H + 1) * 4 + layout.bounds.size * 4,
+                ops=2 * real_slots * F)
+    t = timed(lambda: k2.banded_sddmm(*args, heads=H, seg=dev["seg"]),
+              device)
     plain_ms = cuda_ms(lambda: k2.banded_sddmm_plain(*args, heads=H), device,
                        windows=3)
-    bnd = bnd3(4, H)
-    log(f"# banded_sddmm F={F_HID} H={H} float32 K={layout.K}: err "
+    log(f"# banded_sddmm {label} F={F} H={H} msgs {str(msg_dtype)[6:]} y "
+        f"{str(y_dtype)[6:]} K={layout.K} ({form}): err "
         f"{float(diff.max()):.3g} (max per-slot ratio {ratio:.3g}, bound "
-        f"{DOT_TOL}) kernel {ms:.4f} ms ({pct(ms, bnd)}, "
-        f"{bnd['bound_ms']:.4f} ms), device {t['device_ms']:.4f} ms "
-        f"({t['device_how']}); plain {plain_ms:.4f} ms")
-    return kernel_stats(err3, *t3)
+        f"{DOT_TOL}), pad slots 0, two launches and the emulated schedule "
+        f"bitwise; kernel {t['ms']:.4f} ms, device {t['device_ms']:.4f} ms "
+        f"({pct(t['device_ms'], bnd)}, {bnd['bound_ms']:.4f} ms; "
+        f"{t['device_how']}); plain {plain_ms:.4f} ms")
+    return float(diff.max()), t, plain_ms, bnd
+
+
+def check_sddmm(layout, dev, lay_big, dev_big, rng, device):
+    """Kernel 3 on the pull layout at F=128: float32 and bf16 messages
+    with y float32 (the weight cotangent's operands), 2 heads (GAT's), y in
+    bf16, 4 heads, F=33 (the scalar form) and F=32; and on ``lay_big``, the
+    rmat18 pull layout (K=9), at F=32."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    none = ("none: its messages are pre-gathered per band; no one PyTorch "
+            "call dots them with their staircase rows", None)
+    err3, stat = 0.0, None
+    for F, H, mdt, ydt in ((F_HID, 1, f32, f32), (F_HID, 1, bf16, f32),
+                           (F_HID, GAT_HEADS, f32, f32),
+                           (F_HID, GAT_HEADS, bf16, f32),
+                           (F_HID, 1, f32, bf16), (F_HID, 1, bf16, bf16),
+                           (F_HID, 4, f32, f32), (33, 1, f32, f32),
+                           (33, 3, bf16, f32), (F_OUT, 1, f32, f32)):
+        err, t, plain_ms, bnd = sddmm_case(f"rmat{SCALE}", layout, dev, F, H,
+                                           mdt, ydt, rng, device)
+        err3 = max(err3, err)
+        if stat is None:  # F=128, one head, float32: the SpMM's cotangent
+            stat = (t, plain_ms, bnd, none)
+    for mdt in (f32, bf16):
+        err3 = max(err3, sddmm_case(f"rmat{MEMORY_SCALE}", lay_big, dev_big,
+                                    F_OUT, 1, mdt, f32, rng, device)[0])
+    x = torch.zeros(layout.n_pad, F_HID, device=device)
+    refuses_grad("banded_sddmm", lambda yy: k2.banded_sddmm(
+        dev["bounds"], dev["offs2d"],
+        [x[: len(i)] for i in layout.ids], yy, seg=dev["seg"]), x)
+    return kernel_stats(err3, *stat)
 
 
 def refuses_grad(name, fn, *tensors) -> None:
@@ -1095,9 +1299,9 @@ def grads_close(got, ref, tol, floor=1e-7) -> float:
 PROFILE_PARTS = (
     ("kernel 2 (banded_segment_sum)", ("banded_segment_sum_kernel",
                                        "banded_fixup_kernel")),
-    ("kernel 3 (banded_sddmm)", ("banded_sddmm_kernel",)),
+    ("kernel 3 (banded_sddmm)", ("banded_sddmm",)),
     ("row gather (gather_rows)", ("gather_rows",)),
-    ("kernel 1 (segment_reduce)", ("segreduce_kernel",)),
+    ("kernel 1 (segment_reduce)", ("segreduce_",)),
     ("permutation (apply_fixed_perm)", ("permute_kernel",)),
     ("dense mm", ("gemm", "cutlass", "xmma", "sm90_", "cublas")),
 )
@@ -1156,7 +1360,8 @@ def profile_gat(g, device, steps: int = 3) -> None:
             parts[part][1] += 1
         log(f"# gat profile rmat{SCALE} {name} (banded, {steps} steps): busy "
             f"{busy:.3f} ms/step in a {span:.3f} ms kernel span, idle share "
-            f"{1 - busy / span:.3f}; " + "; ".join(
+            f"{1 - busy / span:.3f}, {len(kern) / steps:g} device kernels and "
+            f"copies a step; " + "; ".join(
                 f"{p} {t:.3f} ms ({100 * t / busy:.1f}%, "
                 f"{n / steps:g} kernels)" for p, (t, n) in parts.items()))
 
@@ -1221,13 +1426,16 @@ def phase_gat(hg, g, hg_big, device):
     _, grads, loss = step("auto")
     counts = launches_since(before)
     # per layer: forward K gathers + 1 sum; backward K gathers + 1 SDDMM
-    # (weight cotangent), H (K + K_b) segment sums (ds_dst, ds_src), 1
+    # (weight cotangent), 2 segment reduces (ds_dst off the pull bands,
+    # ds_src off the push bands: each one launch for all bands and heads,
+    # where a launch per band and head made H (K + K_b) = 12 a layer), 1
     # permutation (pull to push bands), K_b gathers + 1 sum (g_h)
-    H = GAT_HEADS
-    want = dict(segment_reduce=2 * H * (K + K_b), banded_segment_sum=4,
+    want = dict(segment_reduce=2 * 2, banded_segment_sum=4,
                 banded_sddmm=2, segment_sum=0, gather_rows=2 * (2 * K + K_b),
                 apply_fixed_perm=2)
-    assert counts == want, counts
+    assert counts == want, (
+        "a GAT step launches kernel 1 once per layer and direction (all "
+        "bands and heads in one launch)", counts)
     log(f"# gat train step launches (banded, native backward): "
         f"{json.dumps(counts)}")
     # from zero momentum the new momentum is the gradient itself

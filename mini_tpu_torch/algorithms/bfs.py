@@ -16,6 +16,7 @@ kernel's ``min``).
 from __future__ import annotations
 
 import dataclasses
+import numbers
 
 import numpy as np
 import torch
@@ -48,11 +49,36 @@ class BfsResult:
 def bfs(
     g: GraphSlice,
     src: int,
+    alpha: float | None = None,
     max_iter: int | None = None,
+    sparse_capv: int | None = None,
+    sparse_cape: int | None = None,
+    chain_cap: int | None = None,
 ) -> BfsResult:
     """Run BFS from ``src`` on ``g``'s device.  ``num_iterations`` is the
     first ``it`` with no vertex at depth ``it`` (or ``max_iter``, default
-    ``n_pad``), as in ``mini_tpu.algorithms.bfs``."""
+    ``n_pad``), as in ``mini_tpu.algorithms.bfs``.
+
+    The parameters are those of ``mini_tpu.algorithms.bfs.bfs``, in its
+    order.  ``alpha`` (the push->pull switch threshold) and ``sparse_capv``,
+    ``sparse_cape``, ``chain_cap`` (the caps of the compact tiers) choose
+    between schedules that give the same labels and preds; this port runs
+    every round as the dense sweep, so they are checked (a real number,
+    non-negative integers) and change nothing."""
+    if alpha is not None and (isinstance(alpha, bool)
+                              or not isinstance(alpha, numbers.Real)):
+        raise TypeError(f"alpha must be a real number or None, got "
+                        f"{type(alpha).__name__}")
+    caps = dict(max_iter=max_iter, sparse_capv=sparse_capv,
+                sparse_cape=sparse_cape, chain_cap=chain_cap)
+    for name, cap in caps.items():
+        if cap is None:
+            continue
+        if isinstance(cap, bool) or not isinstance(cap, numbers.Integral):
+            raise TypeError(f"{name} must be an integer or None, got "
+                            f"{type(cap).__name__}")
+        if cap < 0:
+            raise ValueError(f"{name} must be >= 0, got {cap}")
     if max_iter is None:
         max_iter = g.n_pad
     labels = torch.full((g.n_pad,), -1, dtype=torch.int32, device=g.device)

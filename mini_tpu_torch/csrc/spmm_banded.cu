@@ -394,80 +394,220 @@ void launch_sum(const StreamPtrs& ptrs, const Layout& L, float* out,
 // -- SDDMM --------------------------------------------------------------
 
 // Banded SDDMM, the second entry point below:
-//   dw[base_k + j] = <y[dst(k, j), :], msgs[k][j, :]>
-// for every slot j < bounds[k, n_tiles] of band k, where dst(k, j) is the
-// row whose staircase segment holds j; slots past the band's end are 0.
-// It replaces mini_tpu/ops/pallas/spmm_banded.py, banded_sddmm.  The TPU
-// kernel walks 128-row output tiles and multiplies each 512-edge chunk
-// against the tile on the MXU, with a "pure chunk" path and a
-// read-modify-write of chunks that straddle two tiles, all of it because
-// its grid runs in order on one core.  Here the output is per slot, so the
-// kernel is edge-parallel: one warp owns 32 consecutive slots of one band,
-// finds the first slot's row by binary search (over bounds[k, :], then
-// over offs2d[t, k, :]) and walks forward.  Each lane holds columns
-// lane, lane + 32, ... of the current y row in registers, reloaded only
-// when the segment changes; a slot's dot product is a warp-shuffle sum.
-// Every slot is written exactly once, with no atomics: deterministic, and
-// a hub row spreads over as many warps as it has runs of 32 slots.
-// Bound by bytes like the sum: each message row is read once (y rows come
-// from cache), 2 operations per 4 bytes of float32 message.
+//   dw[base_k + j, h] = <y[dst(k, j), h d:(h + 1) d], msgs[k][j, h d:(h + 1) d]>
+// with d = F / H, for every slot j < bounds[k, n_tiles] of band k, where
+// dst(k, j) is the row whose staircase segment holds j; slots past the
+// band's end are exactly 0.  H = 1 is the SpMM's weight cotangent, H > 1
+// GAT's per-head one.  It replaces mini_tpu/ops/pallas/spmm_banded.py,
+// banded_sddmm.  The TPU kernel walks 128-row output tiles and multiplies
+// each 512-edge chunk against the tile on the MXU, with a "pure chunk"
+// path and a read-modify-write of chunks that straddle two tiles, all of
+// it because its grid runs in order on one core; it pads each head to 128
+// lanes and runs H passes.  Here the output is per slot, so the kernel is
+// edge-parallel: one warp owns 32 consecutive slots of one band, and a hub
+// row spreads over as many warps as it has runs of 32 slots.
 //
-// With H heads (GAT's weight cotangent) a slot gets H dot products,
-// dw[base_k + j, h] over columns [h F/H, (h+1) F/H): the warp walks its 32
-// slots once per head, over that head's columns only, so each message byte
-// is still read once and no head is padded or copied (the TPU twin pads
-// each head to 128 lanes and runs H passes).  H = 1 is the form above,
-// with the same order of operations.
+// What bounds it on an H100: bytes.  Each message row is read once (y rows
+// come from cache: a segment's slots are neighbours), 2 operations per 4
+// bytes of float32 message.  At rmat16, K = 3, F = 128 float32: 1.074 GB of
+// messages, 33.6 MB of y, 8.4 MB out: 0.333 ms at 3.35 TB/s.
+//
+// The first form of this kernel read one scalar a lane per load (columns
+// lane, lane + 32, ...: a warp instruction moved 128 of a row's 512 bytes,
+// 64 in bf16), stepped the staircase in memory inside its slot loop, and
+// with H heads did all of it H times: 58% of the bound in float32, 32%
+// with bf16 messages, 49% with 2 heads (NVIDIA H100 80GB HBM3, 700 W;
+// PERF.md).  The design now:
+// - The destination row of a slot is read, not searched: seg[k][j], the
+//   per-slot row ids the layout keeps on the device (4 bytes a slot, under
+//   1% of the bytes at F = 128).  Lane s loads the id of the warp's slot s
+//   in one coalesced instruction; a shuffle hands it to the lanes that
+//   work on that slot.
+// - 16-byte loads.  A lane holds V consecutive columns of a message row (V
+//   = 4 float32, 8 bf16).  The G lanes that cover a row (G = the power of
+//   two >= F / V, at most 32) form a slot's lane group, and a warp works
+//   on 32 / G neighbouring slots per instruction: one 512-byte row in
+//   float32 at F = 128, two rows in bf16, four at F = 32 float32.
+// - All heads in one pass.  The F / (H V) lanes that hold head h's columns
+//   are an aligned sub-group of the lane group; the shuffle sum runs
+//   inside it (H = 2, F = 128 float32: two groups of 16, 4 steps), so the
+//   slots are walked once and every head's dot comes from one read of the
+//   row.
+// - The y row of a slot is loaded with its message row, both at once:
+//   neighbouring slots share a row, so the load hits L1, and no lane waits
+//   on a row change.  The message loads are streaming loads (read once),
+//   so they do not push y out of the caches.
+// - One row a lane group in flight, and the card's resident warps hide
+//   the latency.  A batch of B rows in flight per lane with a transposed
+//   shuffle fold (B - 1 shuffles for B dots) was built and swept on the
+//   H100 at rmat16, K = 3, F = 128: float32 0.3801, 0.3890, 0.3822, 0.3854
+//   ms for B = 1, 2, 4, 8; bf16 messages 0.2080, 0.2360, 0.3249, 0.5438 ms
+//   (the batch's registers cost more resident warps than its loads gain).
+//   So B = 1 stayed and the batch went.
+// - Products and sums are single float32 operations in a fixed order
+//   (__fmul_rn, __fadd_rn: no fused multiply-add), the same as
+//   banded_sddmm_scheduled_plain (ops/kernels/spmm_banded.py), which
+//   reproduces the kernel bit for bit.  No atomics; every slot is written
+//   exactly once.
+// Measured at rmat16, K = 3, F = 128 on the device (NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py, two runs): float32 0.374-0.388 ms (86-90%
+// of the bound), bf16 messages 0.211-0.219 (80-83%), 2 heads 0.386-0.396
+// (85-88%), 4 heads 0.393-0.409; F = 32 0.094-0.097 (91-93%); rmat18, K =
+// 9, F = 32 0.402-0.415 (85-87%); the scalar form at F = 33 0.275-0.278
+// (32-33%).
+// An F that is no multiple of V, more than 32 V columns, a head width
+// whose lanes are no power of two, or an unaligned pointer takes the
+// scalar form: one column a lane and load, columns lane, lane + 32, ...,
+// the 32 slots one after another and once per head, with the same per-slot
+// row ids.  The wrapper chooses (sddmm_plan).
 
+// V columns of one row as floats, one load of up to 16 bytes (two for 8
+// float32).  kStream: a streaming load, for bytes read once (the messages),
+// so that they do not push the y rows out of the caches.
+template <bool kStream, typename R>
+__device__ __forceinline__ R load_raw(const R* p) {
+  return kStream ? __ldcs(p) : __ldg(p);
+}
+template <typename T, int V> struct Cols;
+template <> struct Cols<float, 4> {
+  template <bool kStream>
+  static __device__ __forceinline__ void load(const float* p, float (&f)[4]) {
+    const float4 r = load_raw<kStream>(reinterpret_cast<const float4*>(p));
+    f[0] = r.x; f[1] = r.y; f[2] = r.z; f[3] = r.w;
+  }
+};
+template <> struct Cols<float, 8> {
+  template <bool kStream>
+  static __device__ __forceinline__ void load(const float* p, float (&f)[8]) {
+    const float4 a = load_raw<kStream>(reinterpret_cast<const float4*>(p));
+    const float4 b = load_raw<kStream>(reinterpret_cast<const float4*>(p) + 1);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+  }
+};
+__device__ __forceinline__ void unpack_bf16(uint32_t w, float& lo, float& hi) {
+  lo = __uint_as_float(w << 16);  // bf16 -> float32 is exact: the high half
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+template <> struct Cols<__nv_bfloat16, 4> {
+  template <bool kStream>
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&f)[4]) {
+    const uint2 r = load_raw<kStream>(reinterpret_cast<const uint2*>(p));
+    unpack_bf16(r.x, f[0], f[1]);
+    unpack_bf16(r.y, f[2], f[3]);
+  }
+};
+template <> struct Cols<__nv_bfloat16, 8> {
+  template <bool kStream>
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&f)[8]) {
+    const uint4 r = load_raw<kStream>(reinterpret_cast<const uint4*>(p));
+    unpack_bf16(r.x, f[0], f[1]);
+    unpack_bf16(r.y, f[2], f[3]);
+    unpack_bf16(r.z, f[4], f[5]);
+    unpack_bf16(r.w, f[6], f[7]);
+  }
+};
+
+// What the two forms share: the warp's run of 32 slots, its band, and the
+// band's real length.
+struct SddmmRun {
+  long long s0;  // flat slot of lane 0
+  int k, j0, end;
+};
+
+__device__ __forceinline__ SddmmRun sddmm_run(const StreamBases& base,
+                                              const int* bounds, int K,
+                                              int n_tiles, long long run) {
+  SddmmRun r;
+  r.s0 = run * kSlotsPerWarp;
+  r.k = 0;
+  while (r.k + 1 < K && base.b[r.k + 1] <= r.s0) ++r.k;
+  r.j0 = static_cast<int>(r.s0 - base.b[r.k]);
+  // the band's real slots are [0, end)
+  r.end = bounds[static_cast<size_t>(r.k) * (n_tiles + 1) + n_tiles];
+  return r;
+}
+
+// G: a slot's lanes; Lh: a head's lanes, dividing G (G for one head); both
+// powers of two.  F = V times the lanes that hold columns (<= G).
 template <typename TM, typename TY>
 __global__ void __launch_bounds__(kWarp * kSddmmWarps)
-banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
+banded_sddmm_kernel(const __grid_constant__ StreamPtrs msgs,
+                    const __grid_constant__ StreamPtrs segs,
+                    const __grid_constant__ StreamBases base,
                     const int* __restrict__ bounds,
-                    const int* __restrict__ offs2d,
                     const TY* __restrict__ y, float* __restrict__ out, int K,
-                    int n_tiles, int F, int H, long long n_runs) {
+                    int n_tiles, int F, int H, int G, int Lh,
+                    long long n_runs) {
+  constexpr int V = 16 / sizeof(TM);
+  constexpr unsigned kFull = 0xffffffffu;
   const int lane = threadIdx.x % kWarp;
   const long long run =
       static_cast<long long>(blockIdx.x) * kSddmmWarps + threadIdx.x / kWarp;
   if (run >= n_runs) return;
-  const long long s0 = run * kSlotsPerWarp;  // flat slot of lane 0
-  int k = 0;
-  while (k + 1 < K && base.b[k + 1] <= s0) ++k;
-  const int j0 = static_cast<int>(s0 - base.b[k]);
-  const int* bk = bounds + static_cast<size_t>(k) * (n_tiles + 1);
-  const int end = bk[n_tiles];  // the band's real slots are [0, end)
-  const int j1 = min(j0 + kSlotsPerWarp, end);
-  // the segment (tile t0, row r0) holding slot j0; its end is > j0
-  int t0 = 0, r0 = 0;
-  if (j0 < end) {
-    t0 = last_le(bk, n_tiles, j0);
-    r0 = last_le(offs2d + (static_cast<size_t>(t0) * K + k) * kRowTile,
-                 kRowTile, j0);
+  const SddmmRun r = sddmm_run(base, bounds, K, n_tiles, run);
+  const TM* m = static_cast<const TM*>(msgs.p[r.k]);
+  // lane s: the row of the warp's slot s (a pad slot's id is a valid row)
+  const int my_row = static_cast<const int*>(segs.p[r.k])[r.j0 + lane];
+  const int S = kWarp / G;             // slots per step
+  const int sg = lane / G;             // this lane's slot within a step
+  const int c = (lane % G) * V;        // its first column
+  const int head = (lane % G) / Lh;    // >= H: lanes past the last head
+  const bool col_on = c < F;
+  for (int step = 0; step < G; ++step) {
+    const int slot = step * S + sg;
+    const int row = __shfl_sync(kFull, my_row, slot);
+    const int j = r.j0 + slot;
+    float p = 0.0f;
+    if (col_on && j < r.end) {
+      float mv[V], yv[V];
+      Cols<TM, V>::template load<true>(m + static_cast<size_t>(j) * F + c,
+                                       mv);
+      Cols<TY, V>::template load<false>(y + static_cast<size_t>(row) * F + c,
+                                        yv);
+      p = __fmul_rn(yv[0], mv[0]);
+#pragma unroll
+      for (int i = 1; i < V; ++i)
+        p = __fadd_rn(p, __fmul_rn(yv[i], mv[i]));
+    }
+    for (int o = Lh / 2; o >= 1; o /= 2)
+      p = __fadd_rn(p, __shfl_xor_sync(kFull, p, o));
+    if (head < H && lane % Lh == 0)
+      out[(r.s0 + slot) * H + head] = p;
   }
-  const TM* m = static_cast<const TM*>(msgs.p[k]);
+}
+
+// The scalar form: any F and H, one column a lane and load.  Lane s
+// accumulates slot j0 + s; a pad slot adds nothing and stays 0.
+template <typename TM, typename TY>
+__global__ void __launch_bounds__(kWarp * kSddmmWarps)
+banded_sddmm_scalar_kernel(const __grid_constant__ StreamPtrs msgs,
+                           const __grid_constant__ StreamPtrs segs,
+                           const __grid_constant__ StreamBases base,
+                           const int* __restrict__ bounds,
+                           const TY* __restrict__ y, float* __restrict__ out,
+                           int K, int n_tiles, int F, int H,
+                           long long n_runs) {
+  constexpr unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x % kWarp;
+  const long long run =
+      static_cast<long long>(blockIdx.x) * kSddmmWarps + threadIdx.x / kWarp;
+  if (run >= n_runs) return;
+  const SddmmRun r = sddmm_run(base, bounds, K, n_tiles, run);
+  const TM* m = static_cast<const TM*>(msgs.p[r.k]);
+  const int my_row = static_cast<const int*>(segs.p[r.k])[r.j0 + lane];
+  const int j1 = min(r.j0 + kSlotsPerWarp, r.end);
   const int d = F / H;  // head h dots columns [h d, (h + 1) d)
   for (int h = 0; h < H; ++h) {
     const int c_end = (h + 1) * d;
-    float acc = 0.0f;  // lane s accumulates slot j0 + s
-    for (int c0 = h * d; c0 < c_end && j0 < end; c0 += kColBlock) {
-      int t = t0, r = r0, row = -1;
+    float acc = 0.0f;
+    for (int c0 = h * d; c0 < c_end; c0 += kColBlock) {
+      int row = -1;
       float yv[kColsPerLane];
-      auto seg_end = [&](int tt, int rr) {
-        return rr + 1 < kRowTile
-                   ? offs2d[(static_cast<size_t>(tt) * K + k) * kRowTile +
-                            rr + 1]
-                   : bk[tt + 1];
-      };
-      int next = seg_end(t, r);
-      for (int j = j0; j < j1; ++j) {
-        while (j >= next) {  // skip to the segment that holds j
-          if (++r == kRowTile) {
-            r = 0;
-            ++t;
-          }
-          next = seg_end(t, r);
-        }
-        const int v = t * kRowTile + r;
+      for (int j = r.j0; j < j1; ++j) {
+        const int v = __shfl_sync(kFull, my_row, j - r.j0);
         if (v != row) {  // a new segment: its y row into registers
           row = v;
           const TY* yr = y + static_cast<size_t>(v) * F;
@@ -482,28 +622,44 @@ banded_sddmm_kernel(StreamPtrs msgs, StreamBases base,
 #pragma unroll
         for (int i = 0; i < kColsPerLane; ++i) {
           const int c = c0 + lane + i * kWarp;
-          if (c < c_end) p += yv[i] * to_f32(mj[c]);
+          if (c < c_end) p = __fadd_rn(p, __fmul_rn(yv[i], to_f32(mj[c])));
         }
 #pragma unroll
         for (int o = kWarp / 2; o > 0; o /= 2)
-          p += __shfl_xor_sync(0xffffffffu, p, o);
-        if (lane == j - j0) acc += p;
+          p = __fadd_rn(p, __shfl_xor_sync(kFull, p, o));
+        if (lane == j - r.j0) acc = __fadd_rn(acc, p);
       }
     }
-    out[(s0 + lane) * H + h] = acc;
+    out[(r.s0 + lane) * H + h] = acc;
   }
 }
 
+struct SddmmArgs {
+  StreamPtrs msgs, segs;
+  StreamBases base;
+  const int* bounds;
+  const void* y;
+  float* out;
+  int K, n_tiles, F, H, G, Lh;
+  long long n_runs;
+  cudaStream_t stream;
+};
+
 template <typename TM, typename TY>
-void launch_sddmm(const StreamPtrs& ptrs, const StreamBases& bases,
-                  const int* b, const int* o, const void* y, float* out,
-                  int K, int n_tiles, int F, int H, long long n_runs,
-                  cudaStream_t s) {
-  const long long blocks = (n_runs + kSddmmWarps - 1) / kSddmmWarps;
-  banded_sddmm_kernel<TM, TY>
-      <<<static_cast<unsigned>(blocks), kWarp * kSddmmWarps, 0, s>>>(
-          ptrs, bases, b, o, static_cast<const TY*>(y), out, K, n_tiles, F,
-          H, n_runs);
+void launch_sddmm(const SddmmArgs& a, bool vector) {
+  const long long blocks = (a.n_runs + kSddmmWarps - 1) / kSddmmWarps;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const TY* y = static_cast<const TY*>(a.y);
+  if (vector) {
+    banded_sddmm_kernel<TM, TY><<<grid, kWarp * kSddmmWarps, 0, a.stream>>>(
+        a.msgs, a.segs, a.base, a.bounds, y, a.out, a.K, a.n_tiles, a.F, a.H,
+        a.G, a.Lh, a.n_runs);
+  } else {
+    banded_sddmm_scalar_kernel<TM, TY>
+        <<<grid, kWarp * kSddmmWarps, 0, a.stream>>>(
+            a.msgs, a.segs, a.base, a.bounds, y, a.out, a.K, a.n_tiles, a.F,
+            a.H, a.n_runs);
+  }
 }
 
 }  // namespace
@@ -552,50 +708,67 @@ extern "C" int banded_segment_sum_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// msg_ptrs, lens: host arrays of K device pointers and K stream lengths
-// (each a multiple of 32).  H: heads, dividing F.  out: float32
-// [sum(lens), H].  msg_dtype, y_dtype: DT_FLOAT32 or DT_BFLOAT16.  Returns
+// msg_ptrs, seg_ptrs, lens: host arrays of K device pointers to the
+// streams, K to their per-slot row ids (int32 [lens[k]]) and K stream
+// lengths (each a multiple of 32).  H: heads, dividing F.  out: float32
+// [sum(lens), H].  msg_dtype, y_dtype: DT_FLOAT32 or DT_BFLOAT16.  lanes,
+// head_lanes: the wrapper's sddmm_plan: lanes 0 is the scalar form; else
+// the vector form's lanes a slot (a power of two up to 32 that covers F in
+// 16-byte vectors) and lanes a head (a power of two dividing lanes), for
+// rows of whole 16-byte vectors and 16-byte aligned pointers.  Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for bad arguments.
 extern "C" int banded_sddmm_launch(const void* const* msg_ptrs,
+                                   const void* const* seg_ptrs,
                                    const long long* lens, int K,
-                                   const void* bounds, const void* offs2d,
-                                   const void* y, void* out, int n_tiles,
-                                   int F, int H, int msg_dtype, int y_dtype,
-                                   void* stream) {
+                                   const void* bounds, const void* y,
+                                   void* out, int n_tiles, int F, int H,
+                                   int msg_dtype, int y_dtype, int lanes,
+                                   int head_lanes, void* stream) {
   const auto dtype_ok = [](int d) {
     return d == DT_FLOAT32 || d == DT_BFLOAT16;
   };
+  const auto pow2 = [](int x) { return x >= 1 && (x & (x - 1)) == 0; };
   if (K < 1 || K > kMaxBands || n_tiles < 1 || F < 1 || H < 1 || F % H ||
       !dtype_ok(msg_dtype) || !dtype_ok(y_dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  StreamPtrs ptrs = {};
-  StreamBases bases = {};
+  if (lanes != 0) {
+    const int V = msg_dtype == DT_FLOAT32 ? 4 : 8;
+    if (!pow2(lanes) || lanes > kWarp || !pow2(head_lanes) ||
+        lanes % head_lanes || F % V || F > lanes * V ||
+        (H > 1 ? head_lanes * V * H != F : head_lanes != lanes))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  SddmmArgs a = {};
   for (int k = 0; k < K; ++k) {
     if (lens[k] < 0 || lens[k] % kSlotsPerWarp)
       return static_cast<int>(cudaErrorInvalidValue);
-    ptrs.p[k] = msg_ptrs[k];
-    bases.b[k + 1] = bases.b[k] + lens[k];
+    a.msgs.p[k] = msg_ptrs[k];
+    a.segs.p[k] = seg_ptrs[k];
+    a.base.b[k + 1] = a.base.b[k] + lens[k];
   }
-  const long long n_runs = bases.b[K] / kSlotsPerWarp;
-  if (n_runs == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* b = static_cast<const int*>(bounds);
-  const int* o = static_cast<const int*>(offs2d);
-  float* dw = static_cast<float*>(out);
+  a.n_runs = a.base.b[K] / kSlotsPerWarp;
+  if (a.n_runs == 0) return 0;
+  a.bounds = static_cast<const int*>(bounds);
+  a.y = y;
+  a.out = static_cast<float*>(out);
+  a.K = K;
+  a.n_tiles = n_tiles;
+  a.F = F;
+  a.H = H;
+  a.G = lanes;
+  a.Lh = head_lanes;
+  a.stream = static_cast<cudaStream_t>(stream);
+  const bool vector = lanes != 0;
   const int code = msg_dtype * 2 + y_dtype;
   if (code == DT_FLOAT32 * 2 + DT_FLOAT32) {
-    launch_sddmm<float, float>(ptrs, bases, b, o, y, dw, K, n_tiles, F,
-                               H, n_runs, s);
+    launch_sddmm<float, float>(a, vector);
   } else if (code == DT_FLOAT32 * 2 + DT_BFLOAT16) {
-    launch_sddmm<float, __nv_bfloat16>(ptrs, bases, b, o, y, dw, K, n_tiles,
-                                       F, H, n_runs, s);
+    launch_sddmm<float, __nv_bfloat16>(a, vector);
   } else if (code == DT_BFLOAT16 * 2 + DT_FLOAT32) {
-    launch_sddmm<__nv_bfloat16, float>(ptrs, bases, b, o, y, dw, K, n_tiles,
-                                       F, H, n_runs, s);
+    launch_sddmm<__nv_bfloat16, float>(a, vector);
   } else {
-    launch_sddmm<__nv_bfloat16, __nv_bfloat16>(ptrs, bases, b, o, y, dw, K,
-                                               n_tiles, F, H, n_runs, s);
+    launch_sddmm<__nv_bfloat16, __nv_bfloat16>(a, vector);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,8 @@ segments contiguous; "csr" = sorted by (src, dst).  A mover is one gather
 by the order's vertex ids (``csc_srcs``, ``csc_dsts``, ``csr_srcs``,
 ``csr_dsts``); pad edges gather the ghost vertex, as in the JAX engine.
 A reduce is one launch of the contiguous-segment kernel
-(ops/kernels/segreduce_kernel.py) over the order's offsets.
+(ops/kernels/segreduce_kernel.py) over the order's offsets, ``[m, H]``
+values (up to 8 columns) included.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from __future__ import annotations
 import torch
 
 from mini_tpu_torch.graph.csr import GraphSlice
-from mini_tpu_torch.ops.kernels.segreduce_kernel import segment_reduce
+from mini_tpu_torch.ops.kernels.segreduce_kernel import (
+    MAX_COLS,
+    segment_reduce,
+)
 
 
 def _gather(idx: torch.Tensor, vals: tuple):
@@ -44,11 +48,11 @@ def dst_vals_to_csr(g: GraphSlice, vertex_vals: torch.Tensor, *more):
 
 
 def _reduce(offsets, seg_ids, edge_vals, op, identity):
-    if edge_vals.ndim == 2:  # [m, H]: one launch per column
-        return torch.stack([
-            _reduce(offsets, seg_ids, edge_vals[:, j].contiguous(), op,
+    if edge_vals.ndim == 2 and edge_vals.shape[1] > MAX_COLS:
+        return torch.cat([  # more columns than one launch takes
+            _reduce(offsets, seg_ids, edge_vals[:, j: j + MAX_COLS], op,
                     identity)
-            for j in range(edge_vals.shape[1])
+            for j in range(0, edge_vals.shape[1], MAX_COLS)
         ], dim=-1)
     if op == "or":
         return segment_reduce(
@@ -60,7 +64,9 @@ def _reduce(offsets, seg_ids, edge_vals, op, identity):
         raise ValueError(f"unknown op {op!r}")
     out = segment_reduce(offsets, seg_ids, edge_vals, op)
     if identity is not None:  # the value of empty segments
-        out = torch.where(offsets[1:] > offsets[:-1], out, identity)
+        nonempty = offsets[1:] > offsets[:-1]
+        out = torch.where(nonempty if out.ndim == 1 else nonempty[:, None],
+                          out, identity)
     return out
 
 

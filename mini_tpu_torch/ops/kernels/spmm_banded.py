@@ -142,12 +142,13 @@ def _bind(K: int) -> None:
         _sum_launch = _build.bind(
             "spmm_banded", "banded_segment_sum_launch",
             [ctypes.POINTER(P), I, V, V, V, V, V, I, I, I, I, I, I, I, I, V])
-        # (msg_ptrs, lens, K, bounds, offs2d, y, out, n_tiles, F, H,
-        #  msg_dtype, y_dtype, stream)
+        # (msg_ptrs, seg_ptrs, lens, K, bounds, y, out, n_tiles, F, H,
+        #  msg_dtype, y_dtype, lanes, head_lanes, stream)
         _sddmm_launch = _build.bind(
             "spmm_banded", "banded_sddmm_launch",
-            [ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong), I, V, V,
-             V, V, I, I, I, I, I, V])
+            [ctypes.POINTER(P), ctypes.POINTER(P),
+             ctypes.POINTER(ctypes.c_longlong), I, V, V, V, I, I, I, I, I, I,
+             I, V])
         _max_bands = _build.bind("spmm_banded", "banded_max_bands", [])()
     if K > _max_bands:
         raise ValueError(f"{K} bands exceed the kernel's {_max_bands}")
@@ -384,6 +385,123 @@ def banded_segment_sum(
     return out
 
 
+def _slot_rows(bounds, offs2d, k, length) -> torch.Tensor:
+    """int32 ``[length]``: the row of every slot of band ``k``'s stream, pad
+    slots included (they take the last row), as ``BandedLayout.dev()``
+    keeps it in ``seg[k]``; built on the staircase's device with no host
+    sync."""
+    starts = offs2d[:, k, :].reshape(-1)
+    slots = torch.arange(length, dtype=starts.dtype, device=starts.device)
+    return (torch.searchsorted(starts, slots, right=True) - 1).to(torch.int32)
+
+
+def sddmm_plan(F: int, heads: int, element_size: int, aligned: bool) -> tuple:
+    """``(lanes, head_lanes)`` of the SDDMM kernel for message rows of F
+    elements and ``heads`` heads.  The vector form: a lane holds ``V = 16 /
+    element_size`` columns in one load, ``lanes`` lanes (a power of two up
+    to 32) cover a row and ``head_lanes`` of them one head.  ``lanes == 0``
+    is the scalar form: rows that are not whole 16-byte vectors or are
+    wider than 32 of them, heads whose lanes are no power of two, or
+    pointers that are not 16-byte aligned."""
+    V = 16 // element_size
+    scalar = (0, 0)
+    if not aligned or F % V or F // V > 32:
+        return scalar
+    lanes = _lanes(F, V)
+    if heads == 1:
+        return lanes, lanes
+    d = F // heads
+    head_lanes = d // V
+    if d % V or head_lanes & (head_lanes - 1):
+        return scalar
+    return lanes, head_lanes
+
+
+def _sddmm_plan_for(msgs, y, heads) -> tuple:
+    aligned = y.data_ptr() % 16 == 0 and all(
+        m.data_ptr() % 16 == 0 for m in msgs)
+    return sddmm_plan(msgs[0].shape[1], heads, msgs[0].element_size(),
+                      aligned)
+
+
+SCALAR_COLS = 256  # columns a warp of the scalar form covers per pass
+
+
+def _xor_fold(p: torch.Tensor) -> torch.Tensor:
+    """A warp's butterfly sum over the last axis (a power of two of lanes):
+    offsets n/2 ... 1, every lane adding its partner's value; lane 0's
+    result (every lane holds the same bits)."""
+    n = p.shape[-1]
+    lane = torch.arange(n, device=p.device)
+    o = n // 2
+    while o >= 1:
+        p = p + p[..., lane ^ o]
+        o //= 2
+    return p[..., 0]
+
+
+def banded_sddmm_scheduled_plain(
+    bounds: torch.Tensor,
+    offs2d: torch.Tensor,
+    msgs: Sequence[torch.Tensor],
+    y: torch.Tensor,
+    precision: str = "split",
+    edge_chunk: int = EDGE_CHUNK,
+    heads: int = 1,
+    plan: Optional[tuple] = None,
+) -> torch.Tensor:
+    """The SDDMM kernel's schedule in plain torch: the same result as
+    ``csrc/spmm_banded.cu`` bit for bit (its products and sums are single
+    float32 operations), for the CPU tests of the lane arithmetic and for
+    the card's check of the kernel.  ``plan`` defaults to the kernel's
+    (:func:`sddmm_plan`).
+
+    Vector form: lane ``l`` of a slot's lane group holds columns ``[l V, (l
+    + 1) V)`` and sums its V products in order; the ``head_lanes`` lanes of
+    a head fold by a butterfly (offsets ``head_lanes / 2 ... 1``).  Scalar
+    form: per head and per pass of 256 columns, lane ``l`` sums the
+    products of columns ``c0 + l + 32 i`` in order, the 32 lanes fold by a
+    butterfly, and the passes' sums add up in order."""
+    msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
+    y = _prepare_y(offs2d, msgs, y, precision, heads)
+    F = msgs[0].shape[1]
+    lanes, head_lanes = (_sddmm_plan_for(msgs, y, heads)
+                         if plan is None else plan)
+    V = 16 // msgs[0].element_size()
+    d = F // heads
+    out = []
+    for k, m in enumerate(msgs):
+        seg = _segment_ids(bounds, offs2d, k)
+        real = seg.numel()
+        prod = y[seg].float() * m[:real].float()  # float32 products
+        dw = torch.zeros(m.shape[0], heads, dtype=torch.float32,
+                         device=m.device)
+        if lanes:
+            wide = prod.new_zeros(real, lanes * V)
+            wide[:, :F] = prod
+            wide = wide.reshape(real, lanes, V)
+            p = wide[..., 0]
+            for i in range(1, V):
+                p = p + wide[..., i]
+            p = p[:, :heads * head_lanes].reshape(real, heads, head_lanes)
+            dw[:real] = _xor_fold(p)
+        else:
+            lane = torch.arange(32, device=m.device)
+            for h in range(heads):
+                acc = prod.new_zeros(real)
+                for c0 in range(h * d, (h + 1) * d, SCALAR_COLS):
+                    p = prod.new_zeros(real, 32)
+                    for i in range(SCALAR_COLS // 32):
+                        c = c0 + lane + 32 * i
+                        on = c < (h + 1) * d
+                        p[:, on] = p[:, on] + prod[:, c[on]]
+                    acc = acc + _xor_fold(p)
+                dw[:real, h] = acc
+        out.append(dw)
+    out = torch.cat(out)
+    return out[:, 0] if heads == 1 else out
+
+
 def banded_sddmm_plain(
     bounds: torch.Tensor,
     offs2d: torch.Tensor,
@@ -421,6 +539,7 @@ def banded_sddmm(
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
     heads: int = 1,
+    seg: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Per-slot dot products ``<y[dst], msgs[k][j]>`` over the banded
     layout: the flat float32 ``[sum mk_pad]`` stream (``[sum mk_pad, H]``
@@ -429,7 +548,10 @@ def banded_sddmm(
     inputs give an exact float32 dot product (float32 products and sums),
     tighter than the TPU twin's 3-pass bf16 hi/lo ``split`` (about 1e-5
     relative).  On CUDA tensors this launches ``csrc/spmm_banded.cu``'s
-    ``banded_sddmm_launch``, one launch for all heads."""
+    ``banded_sddmm_launch``, one launch for all heads, which reads each
+    slot's row from ``seg`` (K int32 ``[mk_pad]`` tensors,
+    ``BandedLayout.dev()["seg"]``; built from the staircase in the call
+    when None).  The CPU's plain version needs no ``seg``."""
     if not _on_card(msgs, "banded_sddmm"):
         return banded_sddmm_plain(bounds, offs2d, msgs, y, precision,
                                   edge_chunk, heads)
@@ -440,17 +562,26 @@ def banded_sddmm(
     y = _prepare_y(offs2d, msgs, y, precision, heads).contiguous()
     _check_cuda(bounds, offs2d, [*msgs, y], device)
     bounds = bounds.contiguous()
-    offs2d = offs2d.contiguous()
     K = len(msgs)
-    _bind(K)
     lens = [int(m.shape[0]) for m in msgs]
+    if seg is None:
+        seg = [_slot_rows(bounds, offs2d, k, n) for k, n in enumerate(lens)]
+    seg = [s.contiguous() for s in seg]
+    if len(seg) != K or any(
+            s.device != device or s.dtype != torch.int32
+            or tuple(s.shape) != (n,) for s, n in zip(seg, lens)):
+        raise ValueError("seg must be K int32 [mk_pad] tensors on the "
+                         "messages' device")
+    _bind(K)
+    lanes, head_lanes = _sddmm_plan_for(msgs, y, heads)
     out = torch.empty(sum(lens), heads, dtype=torch.float32, device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
+    seg_ptrs = (ctypes.c_void_p * K)(*[s.data_ptr() for s in seg])
     rc = _sddmm_launch(
-        ptrs, (ctypes.c_longlong * K)(*lens), K, bounds.data_ptr(),
-        offs2d.data_ptr(), y.data_ptr(), out.data_ptr(), offs2d.shape[0],
-        msgs[0].shape[1], heads, _DTYPE_CODE[msgs[0].dtype],
-        _DTYPE_CODE[y.dtype], _build.stream(device.index),
+        ptrs, seg_ptrs, (ctypes.c_longlong * K)(*lens), K, bounds.data_ptr(),
+        y.data_ptr(), out.data_ptr(), offs2d.shape[0], msgs[0].shape[1],
+        heads, _DTYPE_CODE[msgs[0].dtype], _DTYPE_CODE[y.dtype], lanes,
+        head_lanes, _build.stream(device.index),
     )
     if rc != 0:
         raise RuntimeError(f"banded_sddmm kernel launch failed: CUDA error "

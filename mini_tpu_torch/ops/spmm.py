@@ -35,9 +35,7 @@ import torch
 from mini_tpu_torch.graph.banded import BandedLayout, get_layout
 from mini_tpu_torch.graph.csr import GraphSlice
 from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
-from mini_tpu_torch.ops.kernels.segreduce_kernel import (
-    segment_reduce as segment_reduce_kernel,
-)
+from mini_tpu_torch.ops.kernels.segreduce_kernel import segment_reduce_bands
 from mini_tpu_torch.ops.kernels.spmm_banded import (
     banded_sddmm,
     banded_segment_sum,
@@ -56,6 +54,7 @@ def spmm(
     weights_banded: Optional[Sequence[torch.Tensor]] = None,
     weights_banded_bwd: Optional[Sequence[torch.Tensor]] = None,
     precision: str = "auto",
+    interpret: bool = False,
     heads: int = 1,
 ) -> torch.Tensor:
     """Sparse (adjacency) times dense (features): [n_pad, F] -> [n_pad, F].
@@ -72,6 +71,10 @@ def spmm(
     float32 messages exactly in float32; ``fast`` casts float32 ``x`` to
     bfloat16 before the gather.  The banded and ``pallas_onehot`` results
     are float32.
+    ``interpret`` stands where ``mini_tpu.ops.spmm.spmm`` has it, so the
+    same positional arguments mean the same in both packages; it is
+    accepted and has no effect here (a CUDA kernel has no interpret mode:
+    CPU tensors take the plain versions, CUDA tensors the kernels).
 
     ``heads > 1`` is the blockwise multi-head form (GAT): x is the head
     concat ``[n_pad, H d]``, the weights ``[m_pad, H]`` (or K pre-banded
@@ -178,7 +181,7 @@ def _weight_cotangent(x, go, layout: BandedLayout, precision, heads=1):
     flat = banded_sddmm(
         dev["bounds"], dev["offs2d"], msgs, go,
         precision="split" if precision == "fast" else precision,
-        edge_chunk=layout.edge_chunk, heads=heads,
+        edge_chunk=layout.edge_chunk, heads=heads, seg=dev["seg"],
     )
     return torch.split(flat, [int(m.shape[0]) for m in msgs])
 
@@ -192,21 +195,12 @@ def banded_heads_segment_sum(
 
     Each band's stream is segment-contiguous (``layout.offsets[k]``), so
     this is the contiguous-segment kernel (ops/kernels/segreduce_kernel.py)
-    over each band's offsets, one launch per band and column, summed
-    across bands; JAX runs a segmented scan per band.  Pad slots lie past
-    the last segment end and never count."""
+    over the K bands' offsets: one launch for every band and column, the
+    bands added in order; JAX runs a segmented scan per band.  Pad slots
+    lie past the last segment end and never count."""
     dev = layout.dev(bands[0].device)
-    out = None
-    for k, b in enumerate(bands):
-        mk = layout.lens[k]  # the band's segments end here
-        cols = b[:mk].t().contiguous()
-        seg = dev["seg"][k][:mk]
-        r = torch.stack([
-            segment_reduce_kernel(dev["offsets"][k], seg, c, "sum")
-            for c in cols
-        ], dim=-1)
-        out = r if out is None else out + r
-    return out
+    return segment_reduce_bands(dev["offsets"], list(bands), "sum",
+                                seg=dev["seg"])
 
 
 class _BandedSpmm(torch.autograd.Function):
@@ -320,6 +314,7 @@ def sddmm(
     order: str = "csr",
     impl: str = "auto",
     precision: str = "split",
+    interpret: bool = False,
 ) -> torch.Tensor:
     """Sampled dense-dense product: per-edge ``<xl[src], xr[dst]>`` over
     the sparsity pattern, the shape of L-Spar's per-edge similarity step
@@ -331,6 +326,8 @@ def sddmm(
     band of the ``order``'s layout and runs the ``banded_sddmm`` kernel
     against the other side's rows, then one gather back to edge order.
     ``xla`` is two whole-graph gathers and a row sum in plain torch.
+    ``interpret`` is accepted for ``mini_tpu.ops.spmm.sddmm``'s argument
+    list and has no effect here.
     """
     xr = xl if xr is None else xr
     if order not in ("csr", "csc"):
@@ -380,7 +377,7 @@ def _sddmm_banded(g, xl, xr, order, precision):
     flat = banded_sddmm(
         dev["bounds"], dev["offs2d"], msgs, rows,
         precision="split" if precision == "fast" else precision,
-        edge_chunk=layout.edge_chunk,
+        edge_chunk=layout.edge_chunk, seg=dev["seg"],
     )
     vals = layout.permute_from_bands(flat)
     mask = g.edge_mask if order == "csr" else g.edge_mask_csc

@@ -1,0 +1,194 @@
+"""Port parity of the argument lists: ``bfs``, ``spmm`` and ``sddmm`` of
+``mini_tpu_torch`` take the parameters of ``mini_tpu``'s, in its order and
+with its defaults, so the same positional call means the same in both
+packages.  Every call below hands both packages the same positional
+arguments (numpy arrays wrapped for each) and compares the results: BFS
+labels and preds bitwise, SpMM and SDDMM within float32 rounding of a sum
+taken in another order (rtol and atol 1e-5)."""
+
+import inspect
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mini_tpu.graph as jg
+from mini_tpu.algorithms import bfs as jbfs
+from mini_tpu.graph import banded as jbanded
+from mini_tpu.ops.spmm import sddmm as jsddmm
+from mini_tpu.ops.spmm import spmm as jspmm
+import mini_tpu_torch.graph as tg
+from mini_tpu_torch.algorithms import bfs as tbfs
+from mini_tpu_torch.graph import banded as tbanded
+from mini_tpu_torch.ops.spmm import sddmm as tsddmm
+from mini_tpu_torch.ops.spmm import spmm as tspmm
+
+from test_torch_graph import build
+
+tspmm_mod = sys.modules["mini_tpu_torch.ops.spmm"]
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def wrap(pkg_asarray, args):
+    """The positional arguments with every numpy array wrapped for one
+    package (lists of arrays too)."""
+    def one(a):
+        if isinstance(a, np.ndarray):
+            return pkg_asarray(a)
+        if isinstance(a, (list, tuple)):
+            return [one(b) for b in a]
+        return a
+
+    return [one(a) for a in args]
+
+
+@pytest.mark.parametrize("jfn,tfn", [(jbfs, tbfs), (jspmm, tspmm),
+                                     (jsddmm, tsddmm)],
+                         ids=["bfs", "spmm", "sddmm"])
+def test_parameters_are_the_jax_package_s(jfn, tfn):
+    want = inspect.signature(jfn).parameters
+    got = inspect.signature(tfn).parameters
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].default == want[name].default, name
+        assert got[name].kind == want[name].kind, name
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return (jg.GraphSlice.from_host(build(jg, "random")),
+            tg.GraphSlice.from_host(build(tg, "random"), device="cpu"))
+
+
+def assert_same_bfs(want, got):
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    np.testing.assert_array_equal(got.preds.numpy(), np.asarray(want.preds))
+
+
+@pytest.mark.parametrize("args,kwargs", [
+    ((0.5, 5), {}),          # alpha, then the round cap
+    ((0.5, 2), {}),          # a cap that cuts the search short
+    ((None, None, 0, 0, 0), {}),  # all seven, positionally
+    ((1e-3, None, 64, 512, 128), {}),
+    ((), dict(alpha=0.25)),
+    ((), dict(max_iter=2)),
+    ((), dict(sparse_capv=32)),
+    ((), dict(sparse_cape=256)),
+    ((), dict(chain_cap=0)),
+    ((), dict(alpha=2.0, max_iter=3, sparse_capv=16, sparse_cape=128,
+              chain_cap=32)),
+])
+def test_bfs_same_call_same_result(graphs, args, kwargs):
+    gj, gt = graphs
+    for src in (0, 17):
+        want = jbfs(gj, src, *args, **kwargs)
+        got = tbfs(gt, src, *args, **kwargs)
+        assert_same_bfs(want, got)
+        assert got.num_iterations == int(want.num_iterations)
+
+
+def test_bfs_third_positional_is_alpha_not_the_round_cap(graphs):
+    gj, gt = graphs
+    full = tbfs(gt, 0)
+    assert full.num_iterations > 2
+    # as the round cap, 2 would cut the search; as alpha it changes nothing
+    assert_same_bfs(jbfs(gj, 0, 2), tbfs(gt, 0, 2))
+    assert tbfs(gt, 0, 2).num_iterations == full.num_iterations
+    assert tbfs(gt, 0, None, 2).num_iterations == 2
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(alpha="0.5"), TypeError),
+    (dict(alpha=True), TypeError),
+    (dict(max_iter=2.5), TypeError),
+    (dict(sparse_capv="8"), TypeError),
+    (dict(sparse_cape=1.0), TypeError),
+    (dict(chain_cap=[1]), TypeError),
+    (dict(chain_cap=-1), ValueError),
+    (dict(max_iter=-3), ValueError),
+    (dict(frontier_cap=4), TypeError),  # no such parameter in either package
+])
+def test_bfs_refuses_a_wrong_type(graphs, kwargs, error):
+    with pytest.raises(error):
+        tbfs(graphs[1], 0, **kwargs)
+
+
+@pytest.fixture
+def small_bands(monkeypatch):
+    """128-row bands in both packages: the 256-row graph gets K=2."""
+    small = 128 * 128 * 4
+    monkeypatch.setattr(jbanded, "FAST_TABLE_BYTES", small)
+    monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", small)
+
+
+def spmm_args(gt, direction, impl, interpret, heads, pre_banded):
+    """``(x, direction, weights, op, impl, weights_banded,
+    weights_banded_bwd, precision, interpret, heads)``: every argument of
+    ``spmm`` after the graph, as numpy arrays and plain values."""
+    rng = np.random.RandomState(heads + 2 * interpret)
+    x = (rng.rand(gt.n_pad, 64) - 0.5).astype(np.float32)
+    shape = (gt.m_pad,) if heads == 1 else (gt.m_pad, heads)
+    mask = (gt.edge_mask_csc if direction == "pull" else gt.edge_mask).numpy()
+    w = (rng.rand(*shape) + 0.5).astype(np.float32)
+    w = w * mask.reshape((-1,) + (1,) * (w.ndim - 1))  # pad edges weigh 0
+    banded = banded_bwd = None
+    if pre_banded:  # the same weights in each layout's band order
+        back = "push" if direction == "pull" else "pull"
+        wt = torch.from_numpy(w)
+        banded = [b.numpy() for b in tbanded.get_layout(
+            gt, direction, row_bytes=512).permute_to_bands(wt)]
+        banded_bwd = [b.numpy() for b in tbanded.get_layout(
+            gt, back, row_bytes=512).permute_to_bands(
+                tspmm_mod._other_order(gt, direction, wt))]
+    return (x, direction, w, "sum", impl, banded, banded_bwd, "highest",
+            interpret, heads)
+
+
+@pytest.mark.parametrize("direction,impl,interpret,heads,pre_banded", [
+    ("pull", "xla", False, 1, False),
+    ("push", "xla", False, 2, False),
+    ("pull", "xla", True, 2, False),
+    ("pull", "banded", True, 1, False),
+    ("push", "banded", True, 2, False),
+    ("pull", "banded", True, 1, True),
+])
+def test_spmm_eleven_positional_arguments(graphs, small_bands, direction,
+                                          impl, interpret, heads, pre_banded):
+    """All eleven arguments positionally: the tenth is ``interpret`` (JAX
+    runs its Pallas kernels in interpret mode on the CPU; the port accepts
+    it and does the same with either value), the eleventh ``heads``."""
+    gj, gt = graphs
+    args = spmm_args(gt, direction, impl, interpret, heads, pre_banded)
+    assert len(args) == 10  # the graph is the first of the eleven
+    want = np.asarray(jspmm(gj, *wrap(jnp.asarray, args)))
+    got = tspmm(gt, *wrap(torch.from_numpy, args))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    flipped = list(args)
+    flipped[8] = not interpret  # no effect in the port
+    again = tspmm(gt, *wrap(torch.from_numpy, flipped))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("order,impl,interpret", [
+    ("csr", "xla", False), ("csc", "xla", True), ("csr", "banded", True),
+    ("csc", "banded", True),
+])
+def test_sddmm_seven_positional_arguments(graphs, small_bands, order, impl,
+                                          interpret):
+    gj, gt = graphs
+    rng = np.random.RandomState(3)
+    xl = (rng.rand(gt.n_pad, 64) - 0.5).astype(np.float32)
+    xr = (rng.rand(gt.n_pad, 64) - 0.5).astype(np.float32)
+    args = (xl, xr, order, impl, "highest", interpret)
+    want = np.asarray(jsddmm(gj, *wrap(jnp.asarray, args)))
+    got = tsddmm(gt, *wrap(torch.from_numpy, args))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    for flag in (False, True):  # by name too
+        assert torch.equal(got, tsddmm(
+            gt, torch.from_numpy(xl), torch.from_numpy(xr), order=order,
+            impl=impl, precision="highest", interpret=flag))

@@ -353,3 +353,146 @@ def test_schedule_cached_reused_and_dropped_with_graph():
                              device="cpu")
     gc.collect()
     assert ref() is None
+
+
+# -- the banded SDDMM's schedule (lane groups, heads, the scalar form) --------
+
+DOT_TOL = 1e-5  # |scheduled - plain| <= DOT_TOL * (|y| . |msgs|) per slot
+
+
+def _y(lay, F, dtype, seed=1):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.rand(lay.n_pad, F).astype(np.float32)
+                            - 0.5).to(dtype)
+
+
+def _assert_dots_close(args, msgs, y, H, got):
+    """Every slot within DOT_TOL of the float64 dot, scaled by the slot's
+    magnitude; pad slots exactly 0."""
+    want = k2.banded_sddmm_plain(*args, msgs, y, heads=H)
+    mag = k2.banded_sddmm_plain(*args, [m.abs() for m in msgs], y.abs(),
+                                heads=H)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float(((got - want).abs() / mag.clamp(min=1e-30)).max()) <= DOT_TOL
+    assert torch.all(got[mag == 0] == 0)
+
+
+@pytest.mark.parametrize("ydt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,H", [(32, 1), (32, 2), (32, 4), (33, 1), (33, 3),
+                                 (128, 1), (128, 2), (128, 4), (96, 3),
+                                 (512, 2)])
+@pytest.mark.parametrize("name", ["rmat_K3", "star", "empty_band"])
+def test_sddmm_scheduled_matches_plain(layouts, name, F, H, dtype, ydt):
+    """The kernel's order of operations, in the form its plan picks and in
+    the scalar form, against the plain version."""
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    msgs, y = _msgs(lay, F, dtype), _y(lay, F, ydt)
+    plan = k2._sddmm_plan_for(msgs, y, H)
+    assert (plan == (0, 0)) == (F in (33, 512))  # the scalar form's widths
+    for form in {plan, (0, 0)}:
+        got = k2.banded_sddmm_scheduled_plain(*args, msgs, y, heads=H,
+                                              plan=form)
+        _assert_dots_close(args, msgs, y, H, got)
+
+
+@pytest.mark.parametrize("F,H,elem,plan", [
+    (128, 1, 4, (32, 32)),   # one float32 row a warp instruction
+    (128, 2, 4, (32, 16)),   # GAT: two heads, two groups of 16 lanes
+    (128, 1, 2, (16, 16)),   # two bf16 rows an instruction
+    (128, 4, 2, (16, 4)),
+    (32, 1, 4, (8, 8)),      # four rows an instruction
+    (32, 4, 2, (4, 1)),      # a lane holds a whole head
+    (96, 3, 4, (32, 8)),     # 24 of 32 lanes hold columns
+    (96, 1, 4, (32, 32)),
+    (96, 2, 4, (0, 0)),      # 12 lanes a head: no power of two
+    (33, 1, 4, (0, 0)),      # no whole 16-byte vectors
+    (256, 2, 4, (0, 0)),     # wider than 32 vectors
+    (130, 1, 2, (0, 0)),
+])
+def test_sddmm_plan(F, H, elem, plan):
+    assert k2.sddmm_plan(F, H, elem, True) == plan
+    assert k2.sddmm_plan(F, H, elem, False) == (0, 0)  # unaligned pointers
+
+
+def test_sddmm_slot_rows_match_the_layout(layouts):
+    """The per-slot rows the wrapper builds when given none are the
+    layout's cached ``seg`` (pad slots take the last row)."""
+    for name in ("rmat_K3", "star", "empty_band"):
+        lay = layouts[name]
+        bounds, offs2d = _kernel_args(lay)
+        dev = lay.dev("cpu")
+        for k in range(lay.K):
+            got = k2._slot_rows(bounds, offs2d, k, len(lay.ids[k]))
+            assert got.dtype == torch.int32
+            assert torch.equal(got, dev["seg"][k]), (name, k)
+
+
+def fake_sddmm_launch(msg_ptrs, seg_ptrs, lens, K, bounds_p, y_p, out_p,
+                      n_tiles, F, H, msg_dtype, y_dtype, lanes, head_lanes,
+                      stream):
+    """``csrc/spmm_banded.cu``'s banded_sddmm_launch in NumPy, on the host
+    memory its pointers name: the entry's argument checks, then per real
+    slot and head the dot of the message row with the row ``seg`` names."""
+    import ctypes
+
+    def mem(ptr, n, ct):
+        return np.ctypeslib.as_array((ct * max(n, 1)).from_address(ptr))[:n]
+
+    def rows(ptr, n, code):
+        if code == 0:
+            return mem(ptr, n * F, ctypes.c_float).reshape(n, F).astype(
+                np.float64)
+        raw = mem(ptr, n * F, ctypes.c_uint16).astype(np.uint32) << 16
+        return raw.view(np.float32).reshape(n, F).astype(np.float64)
+
+    V = 4 if msg_dtype == 0 else 8
+    if lanes and (F % V or F > lanes * V or lanes % head_lanes or (
+            head_lanes * V * H != F if H > 1 else head_lanes != lanes)):
+        return 1
+    bounds = mem(bounds_p, K * (n_tiles + 1), ctypes.c_int32).reshape(K, -1)
+    y = rows(y_p, n_tiles * 128, y_dtype)
+    out = mem(out_p, sum(lens[k] for k in range(K)) * H, ctypes.c_float)
+    out = out.reshape(-1, H)
+    out[:] = 0
+    base = 0
+    for k in range(K):
+        if lens[k] % 32:
+            return 1
+        real = bounds[k, -1]
+        seg = mem(seg_ptrs[k], lens[k], ctypes.c_int32)[:real]
+        prod = rows(msg_ptrs[k], lens[k], msg_dtype)[:real] * y[seg]
+        out[base: base + real] = prod.reshape(real, H, F // H).sum(-1)
+        base += lens[k]
+    return 0
+
+
+@pytest.mark.parametrize("ydt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,H", [(128, 1), (128, 2), (32, 4), (33, 3)])
+def test_sddmm_launch_arguments(monkeypatch, layouts, F, H, dtype, ydt):
+    """The launch path's arguments to the C entry (stream, row-id and length
+    arrays, the plan, the dtype codes), with the entry emulated on CPU
+    memory; with and without the layout's ``seg``; one launch counted."""
+    from mini_tpu_torch.ops.kernels import _build
+    from test_torch_gather import on_card
+
+    monkeypatch.setattr(k2, "_sum_launch", object())
+    monkeypatch.setattr(k2, "_sddmm_launch", fake_sddmm_launch)
+    monkeypatch.setattr(k2, "_max_bands", 128)
+    monkeypatch.setattr(_build, "stream", lambda device_index: 0)
+    lay = layouts["rmat_K3"]
+    args = _kernel_args(lay)
+    msgs, y = _msgs(lay, F, dtype), _y(lay, F, ydt)
+    card = [on_card(a) for a in args]
+    for seg in (None, [on_card(s) for s in lay.dev("cpu")["seg"]]):
+        before = k2.sddmm_launches
+        got = k2.banded_sddmm(*card, [on_card(m) for m in msgs], on_card(y),
+                              heads=H, seg=seg)
+        assert k2.sddmm_launches == before + 1
+        _assert_dots_close(args, msgs, y, H, got)
+    with pytest.raises(ValueError, match="seg must be"):
+        k2.banded_sddmm(*card, [on_card(m) for m in msgs], on_card(y),
+                        heads=H, seg=[on_card(s.long())
+                                      for s in lay.dev("cpu")["seg"]])
