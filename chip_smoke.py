@@ -52,9 +52,21 @@ Phases; any failure ends with a traceback and a non-zero exit:
 8. GraphSAGE [128, 128, 32]: ER-2048 against ``sage_forward_cpu``, the
    RMAT graph's banded forward and gradients against ``impl="xla"``, the
    train step time;
-9. one JSON line of the kernels (launch counts of phases 3-8, each phase
-   counted from 0; phase 2's errors, both times, bounds and library
-   calls),
+9. ``bfs_batch`` from the 8 highest-degree RMAT sources: each row bitwise
+   ``bfs``'s; time per source and amortised MTEPS, with and without preds;
+10. SSSP from the hub and 3 reached sources: dists bitwise ``sssp_cpu``,
+    preds the host's min-id parent; with dense rounds only, one segment
+    reduce a round plus one for the preds and the same bits; ``delta`` and
+    ``auto`` the same dists; time and MTEPS;
+11. ``sssp_batch`` over the 8 sources, each row bitwise ``sssp``'s;
+12. SSSP on ``grid2d(2048, 256)`` (524,288 vertices), ``delta`` and
+    ``bellman``, bitwise ``sssp_cpu``: rounds, time, time a round;
+13. PageRank ``standard`` and ``mini`` (30 rounds at most) against
+    ``pagerank_cpu``, one segment reduce a round; time, edges per second;
+14. connected components, bitwise ``cc_cpu``, two segment reduces a round;
+15. the script's time, one JSON line of the kernels (launch counts of
+   phases 3-14, each phase counted from 0; phase 2's errors, both times,
+   bounds and library calls),
    then the last line ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -155,9 +167,9 @@ def graph_ms(fn, device, n: int = 20, replays: int = 5) -> tuple:
     return float(np.median(times)), "cuda graph"
 
 
-def profiled_ms(fn, device, n: int = 20) -> float:
-    """The summed device time of the kernels of ``n`` calls of ``fn``, as
-    ``torch.profiler`` records it, over ``n``."""
+def device_events(fn, device, n: int = 20) -> list:
+    """``(name, us)`` of each device operation (kernel, copy, fill) of
+    ``n`` calls of ``fn``, as ``torch.profiler`` records them."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -166,25 +178,23 @@ def profiled_ms(fn, device, n: int = 20) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize(device)
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / n
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def profiled_ms(fn, device, n: int = 20) -> float:
+    """The summed device time of the kernels of ``n`` calls of ``fn``, as
+    ``torch.profiler`` records it, over ``n``."""
+    return sum(us for _, us in device_events(fn, device, n)) / 1e3 / n
 
 
 def profiled_parts(fn, device, parts, n: int = 20) -> dict:
     """For each of ``parts``, the device time per call (ms) of the kernels
     whose name holds it, as ``torch.profiler`` records ``n`` calls of
     ``fn``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize(device)
-    return {p: sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and p in e.name)
-            / 1e3 / n for p in parts}
+    events = device_events(fn, device, n)
+    return {p: sum(us for name, us in events if p in name) / 1e3 / n
+            for p in parts}
 
 
 def walker_and_fixup(fn, device) -> str:
@@ -1605,6 +1615,249 @@ def phase_sage(g, device):
     log(f"# phase 8: sage train step launches {json.dumps(counts)}")
 
 
+SOURCES = 8  # bench.py:335's Graph500-style batch: the top-degree sources
+GRID = (2048, 256)  # a road-like graph: 524,288 vertices, ~2.1M edges
+
+
+def idle(fn, device, wall_s: float, rounds: int, n: int = 1) -> str:
+    """The device's busy time in one ``fn()`` and its device operations a
+    round (``torch.profiler`` over ``n`` calls), and its idle share of
+    ``wall_s``, the unprofiled time of one call."""
+    events = device_events(fn, device, n)
+    busy = sum(us for _, us in events) / 1e3 / n
+    return (f"device busy {busy:.3f} ms in {len(events) / n:.0f} device ops "
+            f"({len(events) / n / max(rounds, 1):.1f} a round), idle "
+            f"{100 * (1 - busy / (wall_s * 1e3)):.0f}%")
+
+
+def top_sources(hg) -> list:
+    return [int(s) for s in np.argsort(hg.out_degrees)[-SOURCES:]]
+
+
+def reached_edges(hg, reached) -> float:
+    """bench.py's accounting: the out-edges of the reached vertices."""
+    return float(hg.out_degrees[reached].sum())
+
+
+def phase_bfs_batch(hg, g, device):
+    """``bfs_batch`` from the 8 highest-degree sources: each row bitwise
+    ``bfs``'s; the time per source and the amortised MTEPS with and without
+    preds (``bench.py:329-359``)."""
+    import torch
+
+    from mini_tpu_torch.algorithms import bfs, bfs_batch
+    from mini_tpu_torch.utils.timing import time_fn
+
+    srcs = top_sources(hg)
+    res = bfs_batch(g, srcs)
+    lean = bfs_batch(g, srcs, with_preds=False)
+    edges = 0.0
+    for i, s in enumerate(srcs):
+        one = bfs(g, s)
+        assert torch.equal(res.labels[i], one.labels), s
+        assert torch.equal(res.preds[i], one.preds), s
+        assert torch.equal(lean.labels[i], one.labels), s
+        assert int(res.num_iterations[i]) == one.num_iterations, s
+        edges += reached_edges(hg, one.labels.cpu().numpy()[: hg.n] >= 0)
+    assert bool((lean.preds == -1).all())
+    rounds = int(res.num_iterations.sum())
+    for label, kw in (("with preds", {}), ("labels only",
+                                           dict(with_preds=False))):
+        t = time_fn(lambda: bfs_batch(g, srcs, **kw), warmup=1, repeat=3,
+                    device=device)
+        busy = idle(lambda: bfs_batch(g, srcs, **kw), device, t.min_s,
+                    rounds)
+        log(f"# phase 9: bfs_batch {SOURCES} sources, {label}: "
+            f"{t.min_s / SOURCES * 1e3:.3f} ms a source (min of 3), "
+            f"amortised {edges / t.min_s / 1e6:.2f} MTEPS; {busy}; rows "
+            f"bitwise bfs")
+
+
+def host_sssp_parent(hg, dists, src):
+    """pred[v] = min{u : dists[u] + w(u, v) == dists[v]} in float32, -1 for
+    the source and the unreached (NumPy)."""
+    u, v, w = hg.csr_srcs, hg.csr_dsts, hg.csr_weights
+    cand = np.isfinite(dists[v]) & (
+        (dists[u] + w).astype(np.float32) == dists[v])
+    big = np.iinfo(np.int32).max
+    pred = np.full(hg.n, big, np.int64)
+    np.minimum.at(pred, v[cand], u[cand])
+    pred = np.where(np.isfinite(dists) & (pred != big), pred, -1)
+    pred[src] = -1
+    return pred.astype(np.int32)
+
+
+def check_sssp(hg, r, src, label, want=None):
+    """One SSSP result against the Dijkstra oracle's dists (``want``, run
+    here when None) bitwise, the host's min-id parent and the
+    shortest-path-tree check; returns the dists."""
+    from mini_tpu_torch.algorithms import sssp_cpu, validate_pred_tree
+
+    dists = r.dists.cpu().numpy()[: hg.n]
+    preds = r.preds.cpu().numpy()[: hg.n]
+    if want is None:
+        want = sssp_cpu(hg, src)[0]
+    np.testing.assert_array_equal(dists, want)
+    np.testing.assert_array_equal(preds, host_sssp_parent(hg, dists, src))
+    assert validate_pred_tree(dists, preds, hg, src), (label, src)
+    assert r.sparse_overflowed is False, (label, src)
+    return dists
+
+
+def sssp_rounds(r) -> str:
+    return (f"{r.num_iterations} rounds ({r.num_sparse_iterations} sparse, "
+            f"{r.num_chained_iterations} chained)")
+
+
+def phase_sssp(hg, g, device):
+    """SSSP from the hub and 3 reached sources: dists bitwise ``sssp_cpu``,
+    preds the host's min-id parent; the time and MTEPS (``bench.py:157-
+    165``); dense rounds alone launch the segment reduce once a round and
+    once for the preds, with the same bits; delta and auto agree."""
+    import torch
+
+    from mini_tpu_torch.algorithms import sssp
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.utils.timing import time_fn
+
+    hub = int(np.argmax(hg.out_degrees))
+    res = sssp(g, hub)
+    dists = check_sssp(hg, res, hub, "bellman")
+    reached = np.nonzero(np.isfinite(dists))[0]
+    others = np.random.RandomState(0).choice(reached, 3, replace=False)
+    for src in [int(s) for s in others]:
+        r = sssp(g, src)
+        check_sssp(hg, r, src, "bellman")
+        log(f"# sssp src={src}: {sssp_rounds(r)}, dists and preds exact")
+    before = k1.launches
+    dense = sssp(g, hub, sparse_cape=0)
+    launched = k1.launches - before
+    assert launched == dense.num_iterations + 1, (launched, dense)
+    assert dense.num_sparse_iterations == 0
+    assert torch.equal(dense.dists, res.dists)
+    assert torch.equal(dense.preds, res.preds)
+    for variant in ("delta", "auto"):
+        other = sssp(g, hub, variant=variant)
+        assert torch.equal(other.dists, res.dists), variant
+        log(f"# sssp {variant} hub: {sssp_rounds(other)}, dists equal")
+    edges = reached_edges(hg, reached)
+    t = time_fn(lambda: sssp(g, hub), warmup=1, repeat=3, device=device)
+    td = time_fn(lambda: sssp(g, hub, sparse_cape=0), warmup=1, repeat=3,
+                 device=device)
+    busy = idle(lambda: sssp(g, hub), device, t.min_s, res.num_iterations, 3)
+    busy_d = idle(lambda: sssp(g, hub, sparse_cape=0), device, td.min_s,
+                  dense.num_iterations, 3)
+    log(f"# phase 10: sssp hub={hub} {sssp_rounds(res)}: "
+        f"{t.min_s * 1e3:.3f} ms (min of 3), {t.mteps(edges):.2f} MTEPS, "
+        f"{busy}; dense rounds only: {sssp_rounds(dense)}, "
+        f"{td.min_s * 1e3:.3f} ms, {busy_d}, segment_reduce launches "
+        f"{launched} = rounds + 1")
+
+
+def phase_sssp_batch(hg, g, device):
+    """``sssp_batch`` over the 8 sources: each row bitwise ``sssp``'s; the
+    time per source and the amortised MTEPS (``bench.py:362-380``)."""
+    import torch
+
+    from mini_tpu_torch.algorithms import sssp, sssp_batch
+    from mini_tpu_torch.utils.timing import time_fn
+
+    srcs = top_sources(hg)
+    res = sssp_batch(g, srcs)
+    edges = 0.0
+    for i, s in enumerate(srcs):
+        one = sssp(g, s)
+        assert torch.equal(res.dists[i], one.dists), s
+        assert torch.equal(res.preds[i], one.preds), s
+        assert int(res.num_iterations[i]) == one.num_iterations, s
+        edges += reached_edges(hg, torch.isfinite(one.dists).cpu().numpy()
+                               [: hg.n])
+    assert not bool(res.sparse_overflowed.any())
+    t = time_fn(lambda: sssp_batch(g, srcs), warmup=1, repeat=3,
+                device=device)
+    log(f"# phase 11: sssp_batch {SOURCES} sources: "
+        f"{t.min_s / SOURCES * 1e3:.3f} ms a source (min of 3), amortised "
+        f"{edges / t.min_s / 1e6:.2f} MTEPS; rows bitwise sssp")
+
+
+def phase_sssp_grid(device):
+    """Delta-stepping's target family: ``grid2d(2048, 256)`` from vertex 0,
+    ``delta`` and ``bellman`` both bitwise ``sssp_cpu``; many small rounds,
+    so the time per round is the host loop's cost."""
+    from mini_tpu_torch.algorithms import sssp, sssp_cpu
+    from mini_tpu_torch.graph import GraphSlice, grid2d
+    from mini_tpu_torch.utils.timing import time_fn
+
+    t0 = time.perf_counter()
+    hg = grid2d(*GRID, seed=0, weighted=True)
+    g = GraphSlice.from_host(hg, device=device)
+    log(f"# grid2d{GRID}: n={hg.n} m={hg.m} (host build "
+        f"{time.perf_counter() - t0:.2f} s)")
+    want = sssp_cpu(hg, 0)[0]
+    for variant in ("delta", "bellman"):
+        r = sssp(g, 0, variant=variant)
+        check_sssp(hg, r, 0, variant, want)
+        t = time_fn(lambda: sssp(g, 0, variant=variant), warmup=0, repeat=1,
+                    device=device)  # the checked run above was the warm-up
+        edges = reached_edges(hg, np.isfinite(r.dists.cpu().numpy()[: hg.n]))
+        busy = idle(lambda: sssp(g, 0, variant=variant), device, t.min_s,
+                    r.num_iterations)
+        log(f"# phase 12: sssp grid2d{GRID} {variant}: {sssp_rounds(r)}, "
+            f"{t.min_s * 1e3:.1f} ms, "
+            f"{t.min_s / r.num_iterations * 1e3:.4f} ms a round, "
+            f"{t.mteps(edges):.2f} MTEPS, {busy}; dists and preds exact")
+
+
+def phase_pagerank(hg, g, device):
+    """PageRank, ``standard`` and ``mini``, 30 rounds at most
+    (``bench.py:167-178``): within rtol 1e-4, atol 1e-6 of ``pagerank_cpu``,
+    one segment-reduce launch a round; the time and edges per second."""
+    from mini_tpu_torch.algorithms import pagerank, pagerank_cpu
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.utils.timing import time_fn
+
+    for variant in ("standard", "mini"):
+        before = k1.launches
+        r = pagerank(g, variant=variant, max_iter=30)
+        assert k1.launches - before == r.num_iterations, variant
+        ranks = r.ranks.cpu().numpy()
+        assert np.isfinite(ranks).all()
+        np.testing.assert_allclose(
+            ranks[: hg.n], pagerank_cpu(hg, variant=variant, max_iter=30),
+            rtol=1e-4, atol=1e-6)
+        t = time_fn(lambda: pagerank(g, variant=variant, max_iter=30),
+                    warmup=1, repeat=3, device=device)
+        iters = max(r.num_iterations, 1)
+        busy = idle(lambda: pagerank(g, variant=variant, max_iter=30),
+                    device, t.min_s, r.num_iterations, 3)
+        log(f"# phase 13: pagerank {variant}: {r.num_iterations} rounds, "
+            f"{t.min_s * 1e3:.3f} ms (min of 3), "
+            f"{hg.m * iters / t.min_s / 1e9:.3f} G edges/s, {busy}; "
+            f"allclose to pagerank_cpu")
+
+
+def phase_cc(hg, g, device):
+    """Connected components: bitwise ``cc_cpu``, the same count, two
+    segment-reduce launches a round; the time."""
+    from mini_tpu_torch.algorithms import cc_cpu, connected_components
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.utils.timing import time_fn
+
+    before = k1.launches
+    r = connected_components(g)
+    assert k1.launches - before == 2 * r.num_iterations
+    want = cc_cpu(hg)
+    np.testing.assert_array_equal(r.components.cpu().numpy()[: hg.n], want)
+    assert r.num_components == len(np.unique(want))
+    t = time_fn(lambda: connected_components(g), warmup=1, repeat=3,
+                device=device)
+    busy = idle(lambda: connected_components(g), device, t.min_s,
+                r.num_iterations, 3)
+    log(f"# phase 14: cc {r.num_components} components, "
+        f"{r.num_iterations} rounds, {t.min_s * 1e3:.3f} ms (min of 3), "
+        f"{busy}; bitwise cc_cpu")
+
+
 # kernel -> (wrapper module, its launch counter, source, the TPU kernel)
 KERNELS = {
     "segment_reduce": ("segreduce_kernel", "launches",
@@ -1655,6 +1908,7 @@ def main(argv) -> None:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi, rmat
 
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     kind = torch.cuda.get_device_name(0)
@@ -1694,11 +1948,21 @@ def main(argv) -> None:
     ]
     del hg_big
     torch.cuda.empty_cache()
-    paths.append(drive("sage", phase_sage, g, device))
+    paths += [
+        drive("sage", phase_sage, g, device),
+        drive("bfs_batch", phase_bfs_batch, hg, g, device),
+        drive("sssp", phase_sssp, hg, g, device),
+        drive("sssp_batch", phase_sssp_batch, hg, g, device),
+        drive("sssp_grid", phase_sssp_grid, device),
+        drive("pagerank", phase_pagerank, hg, g, device),
+        drive("cc", phase_cc, hg, g, device),
+    ]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():
         assert count > 0, f"{name} was not launched on the main path"
 
+    log(f"# chip_smoke: every phase passed in "
+        f"{time.perf_counter() - started:.1f} s, the build included")
     kernels = [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[name], **stats[name])

@@ -24,9 +24,13 @@ from mini_tpu_torch.graph import (  # noqa: F401
 from mini_tpu_torch.ops import (  # noqa: F401
     Frontier,
     segment_reduce,
+    reduce_by_dst,
+    reduce_by_src,
     advance,
     filter_frontier,
+    neighborhood_reduce,
     compute,
+    uniquify,
     spmm,
     sddmm,
 )

@@ -1,4 +1,5 @@
-"""The frontier-to-frontier operators: advance / filter / compute.
+"""The frontier-to-frontier operators: advance / filter / neighborhood /
+compute.
 
 gunrock/mini semantics being re-expressed:
 
@@ -10,6 +11,8 @@ gunrock/mini semantics being re-expressed:
   destination by the segment-reduce kernel.
 * ``filter`` (`filter.hxx:12-31`): stream compaction by predicate — a mask
   AND on bitmap frontiers.
+* ``neighborhood`` (`neighborhood.hxx:13-70`): a segmented reduce of
+  per-neighbor values, one launch of the segment-reduce kernel.
 * ``compute``: a per-element map over the frontier (listed in gunrock's
   design doc, never implemented there).
 
@@ -28,6 +31,7 @@ from mini_tpu_torch.graph.csr import GraphSlice, segment_ranks
 from mini_tpu_torch.ops.engine import (
     dst_vals_to_csc,
     reduce_csc_by_dst,
+    reduce_csr_by_src,
     src_vals_to_csc,
 )
 from mini_tpu_torch.ops.frontier import Frontier
@@ -137,6 +141,41 @@ def filter_frontier(frontier: Frontier, pred: torch.Tensor) -> Frontier:
     """Keep frontier elements where ``pred`` holds (per-vertex bool array):
     on bitmaps gunrock's compaction (`filter.hxx:12-31`) is a mask AND."""
     return Frontier(frontier.mask & pred)
+
+
+def neighborhood_reduce(
+    g: GraphSlice,
+    frontier: Optional[Frontier],
+    value_fn: Callable[[EdgeView], torch.Tensor],
+    op: str = "sum",
+    direction: str = "pull",
+    identity=None,
+) -> torch.Tensor:
+    """Per-frontier-vertex reduction over neighbor values
+    (`neighborhood.hxx:23-58`).
+
+    pull: for each frontier vertex v, reduce ``value_fn`` over v's in-edges
+    (CSC, keyed by dst); push: over v's out-edges (CSR, keyed by src).  One
+    launch of the segment-reduce kernel either way.  ``frontier=None`` is
+    every vertex (PageRank's rank sum); vertices outside the frontier, and
+    those with no edge, get the reduce's identity, which ``identity``
+    replaces where given.  Returns ``[n_pad]``."""
+    if direction == "pull":
+        ev, reducer, order_ids = edges_by_dst(g), reduce_csc_by_dst, g.csc_dsts
+    elif direction == "push":
+        ev, reducer, order_ids = edges_by_src(g), reduce_csr_by_src, g.csr_srcs
+    else:
+        raise ValueError(f"unknown direction {direction!r}")
+    vals = value_fn(ev)
+    sel = ev.mask
+    if frontier is not None:  # the segment's own vertex is in the frontier
+        sel = sel & torch.index_select(frontier.mask, 0, order_ids)
+    ident = identity_for(op, vals.dtype)
+    out = reducer(g, torch.where(sel, vals, ident), op)
+    if identity is not None:
+        out = torch.where(out == ident, torch.as_tensor(
+            identity, dtype=out.dtype, device=out.device), out)
+    return out
 
 
 def compute(

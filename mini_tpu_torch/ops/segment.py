@@ -65,11 +65,18 @@ def segment_reduce(
     num_segments: int,
     op: str = "sum",
     mask: torch.Tensor | None = None,
+    indices_are_sorted: bool = True,
+    offsets: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Reduce ``vals`` ([m] or [m, F]) into ``num_segments`` buckets keyed
     by ``seg_ids``.  ``mask`` elements set to False contribute the
     identity; empty segments get the identity.  ``or``/``and`` reduce bool
-    values and return bool."""
+    values and return bool.
+
+    ``indices_are_sorted`` and ``offsets`` are ``mini_tpu``'s: there they
+    choose a route (a sorted scatter, or a cumsum difference over the
+    contiguous segments) and never change the result.  One scatter serves
+    every case here, so they change nothing."""
     if op in ("or", "and"):
         red = segment_reduce(
             vals.to(torch.int32), seg_ids, num_segments,
@@ -91,6 +98,25 @@ def segment_reduce(
         idx = idx.view((-1,) + (1,) * (vals.ndim - 1)).expand_as(vals)
     return out.scatter_reduce_(0, idx, vals, _SCATTER_OPS[op],
                                include_self=True)
+
+
+def segment_argmin_by(
+    keys: torch.Tensor,
+    payload: torch.Tensor,
+    seg_ids: torch.Tensor,
+    num_segments: int,
+    mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per segment, ``(min key, min payload among the key-minimizers)``:
+    a reproducible choice among ties, in place of gunrock's benign-race
+    predecessor writes (`sssp/sssp_functor.hxx:30-33`)."""
+    min_keys = segment_reduce(keys, seg_ids, num_segments, "min", mask=mask)
+    at_min = keys == min_keys[seg_ids.long()]
+    if mask is not None:
+        at_min = at_min & mask
+    min_payload = segment_reduce(payload, seg_ids, num_segments, "min",
+                                 mask=at_min)
+    return min_keys, min_payload
 
 
 def exclusive_cumsum(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,14 @@
-"""Port parity of the argument lists: ``bfs``, ``spmm`` and ``sddmm`` of
-``mini_tpu_torch`` take the parameters of ``mini_tpu``'s, in its order and
-with its defaults, so the same positional call means the same in both
-packages.  Every call below hands both packages the same positional
-arguments (numpy arrays wrapped for each) and compares the results: BFS
-labels and preds bitwise, SpMM and SDDMM within float32 rounding of a sum
-taken in another order (rtol and atol 1e-5)."""
+"""Port parity of the argument lists: ``bfs``, ``spmm``, ``sddmm`` and
+the functions of the traversal slice (``bfs_batch``, ``sssp``,
+``sssp_batch``, ``pagerank``, ``connected_components``,
+``neighborhood_reduce``, ``segment_reduce``) of ``mini_tpu_torch`` take the
+parameters of ``mini_tpu``'s, in its order and with its defaults, so the
+same positional call means the same in both packages.  Every call below
+hands both packages the same positional arguments (numpy arrays wrapped
+for each) and compares the results: BFS labels, SSSP dists and preds and
+CC bitwise, SpMM, SDDMM and PageRank within float32 rounding of a sum
+taken in another order (rtol and atol 1e-5; PageRank rtol 1e-4, atol
+1e-6)."""
 
 import inspect
 import sys
@@ -15,11 +19,15 @@ import pytest
 import torch
 
 import mini_tpu.graph as jg
+import mini_tpu.algorithms as jalg
+import mini_tpu.ops as jops
 from mini_tpu.algorithms import bfs as jbfs
 from mini_tpu.graph import banded as jbanded
 from mini_tpu.ops.spmm import sddmm as jsddmm
 from mini_tpu.ops.spmm import spmm as jspmm
 import mini_tpu_torch.graph as tg
+import mini_tpu_torch.algorithms as talg
+import mini_tpu_torch.ops as tops
 from mini_tpu_torch.algorithms import bfs as tbfs
 from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.ops.spmm import sddmm as tsddmm
@@ -45,9 +53,17 @@ def wrap(pkg_asarray, args):
     return [one(a) for a in args]
 
 
+SLICE = [(getattr(jalg, n), getattr(talg, n)) for n in (
+    "bfs_batch", "sssp", "sssp_batch", "pagerank", "connected_components")] \
+    + [(getattr(jops, n), getattr(tops, n)) for n in (
+        "neighborhood_reduce", "segment_reduce", "segment_argmin_by",
+        "reduce_by_dst", "reduce_by_src", "uniquify", "compact_mask")]
+
+
 @pytest.mark.parametrize("jfn,tfn", [(jbfs, tbfs), (jspmm, tspmm),
-                                     (jsddmm, tsddmm)],
-                         ids=["bfs", "spmm", "sddmm"])
+                                     (jsddmm, tsddmm)] + SLICE,
+                         ids=["bfs", "spmm", "sddmm"]
+                         + [j.__name__ for j, _ in SLICE])
 def test_parameters_are_the_jax_package_s(jfn, tfn):
     want = inspect.signature(jfn).parameters
     got = inspect.signature(tfn).parameters
@@ -192,3 +208,45 @@ def test_sddmm_seven_positional_arguments(graphs, small_bands, order, impl,
         assert torch.equal(got, tsddmm(
             gt, torch.from_numpy(xl), torch.from_numpy(xr), order=order,
             impl=impl, precision="highest", interpret=flag))
+
+
+@pytest.mark.parametrize("args", [
+    (None, 4, 1024),            # max_iter, sparse_capv, sparse_cape
+    (None, 8, 64, None, "delta", 16.0, True, 4),  # all ten, positionally
+    (12, None, None, None, "delta", None, False, 0),
+    (None, None, None, 0, "auto"),
+])
+def test_sssp_same_call_same_result(graphs, args):
+    gj, gt = graphs
+    for src in (0, 17):
+        want = jalg.sssp(gj, src, *args)
+        got = talg.sssp(gt, src, *args)
+        np.testing.assert_array_equal(got.dists.numpy(),
+                                      np.asarray(want.dists))
+        np.testing.assert_array_equal(got.preds.numpy(),
+                                      np.asarray(want.preds))
+        assert got.num_iterations == int(want.num_iterations)
+        assert got.num_chained_iterations == int(
+            want.num_chained_iterations)
+
+
+def test_traversal_same_call_same_result(graphs):
+    gj, gt = graphs
+    want = jalg.bfs_batch(gj, jnp.asarray([0, 17]), None, 3, 16, 128, False)
+    got = talg.bfs_batch(gt, [0, 17], None, 3, 16, 128, False)
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
+    want = jalg.sssp_batch(gj, jnp.asarray([0, 17]), None, 16, 128, None,
+                           "delta", 8.0, False, 8)
+    got = talg.sssp_batch(gt, [0, 17], None, 16, 128, None, "delta", 8.0,
+                          False, 8)
+    np.testing.assert_array_equal(got.dists.numpy(), np.asarray(want.dists))
+    np.testing.assert_array_equal(got.num_iterations.numpy(),
+                                  np.asarray(want.num_iterations))
+    want = jalg.pagerank(gj, "mini", 0.8, 1e-4, 7)
+    got = talg.pagerank(gt, "mini", 0.8, 1e-4, 7)
+    np.testing.assert_allclose(got.ranks.numpy(), np.asarray(want.ranks),
+                               rtol=1e-4, atol=1e-6)
+    want, got = jalg.connected_components(gj, 2), talg.connected_components(
+        gt, 2)
+    np.testing.assert_array_equal(got.components.numpy(),
+                                  np.asarray(want.components))
