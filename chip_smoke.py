@@ -64,8 +64,19 @@ Phases; any failure ends with a traceback and a non-zero exit:
 13. PageRank ``standard`` and ``mini`` (30 rounds at most) against
     ``pagerank_cpu``, one segment reduce a round; time, edges per second;
 14. connected components, bitwise ``cc_cpu``, two segment reduces a round;
-15. the script's time, one JSON line of the kernels (launch counts of
-   phases 3-14, each phase counted from 0; phase 2's errors, both times,
+15. k-core: ``hindex`` bitwise ``kcore_cpu_true``, one segment reduce a
+    step; ``mini`` bitwise ``kcore_cpu``, one segment reduce per dense
+    peel round; ``auto`` on the directed ``rmat(16, 16, seed=0)`` takes
+    ``mini``, bitwise ``kcore_cpu``, and ``hindex`` raises there;
+16. coloring at K=16 (the fast path), K=1 and the generic path at K=8:
+    proper (``validate_coloring``), one segment reduce (``bor``) a round,
+    the first 8 rounds bitwise the CPU's; rounds, colors, time;
+17. L-Spar: one segment reduce, counts (per vertex too) ``lspar_cpu``'s,
+    the top-by-sim property, the mask bitwise the CPU's;
+    phases 9-17 print their time (min of 3), their device ops a round and
+    their device idle share, and phases 15-17 each oracle's time;
+18. the script's time, one JSON line of the kernels (launch counts of
+   phases 3-17, each phase counted from 0; phase 2's errors, both times,
    bounds and library calls),
    then the last line ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
@@ -1625,9 +1636,10 @@ def idle(fn, device, wall_s: float, rounds: int, n: int = 1) -> str:
     ``wall_s``, the unprofiled time of one call."""
     events = device_events(fn, device, n)
     busy = sum(us for _, us in events) / 1e3 / n
+    per = max(rounds, 1)
     return (f"device busy {busy:.3f} ms in {len(events) / n:.0f} device ops "
-            f"({len(events) / n / max(rounds, 1):.1f} a round), idle "
-            f"{100 * (1 - busy / (wall_s * 1e3)):.0f}%")
+            f"({len(events) / n / per:.1f} ops and {busy / per:.4f} ms a "
+            f"round), idle {100 * (1 - busy / (wall_s * 1e3)):.0f}%")
 
 
 def top_sources(hg) -> list:
@@ -1858,6 +1870,179 @@ def phase_cc(hg, g, device):
         f"{busy}; bitwise cc_cpu")
 
 
+def oracle(fn, *args):
+    """``fn(*args)`` and its host seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def timed_path(fn, device, rounds: int) -> str:
+    """A path's time, min of 3 after 1 warmup, and its device idle share."""
+    from mini_tpu_torch.utils.timing import time_fn
+
+    t = time_fn(fn, warmup=1, repeat=3, device=device)
+    return (f"{t.min_s * 1e3:.3f} ms (min of 3), "
+            f"{t.min_s / max(rounds, 1) * 1e3:.4f} ms a round, "
+            f"{idle(fn, device, t.min_s, rounds)}")
+
+
+def phase_kcore(hg, g, device):
+    """k-core on the RMAT graph: ``hindex`` (the ``auto`` default) bitwise
+    ``kcore_cpu_true``, one segment-reduce launch a step; ``mini`` bitwise
+    ``kcore_cpu``, one launch per dense peel round; on the directed
+    ``rmat(16, 16, seed=0)`` ``auto`` takes ``mini``, bitwise ``kcore_cpu``,
+    and ``hindex`` raises ``ValueError``."""
+    from mini_tpu_torch.algorithms import kcore, kcore_cpu, kcore_cpu_true
+    from mini_tpu_torch.graph import GraphSlice, rmat
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+
+    def check(r, want, n, label):
+        cores = r.num_cores.cpu().numpy()
+        np.testing.assert_array_equal(cores[:n], want[0])
+        assert not cores[n:].any(), label
+        assert r.largest_k_core == want[1], (label, r.largest_k_core)
+
+    true, s_true = oracle(kcore_cpu_true, hg)
+    mini, s_mini = oracle(kcore_cpu, hg)
+    before = k1.launches
+    h = kcore(g)
+    assert k1.launches - before == h.num_iterations, (k1.launches, h)
+    check(h, true, hg.n, "hindex")
+    before = k1.launches
+    m = kcore(g, "mini")
+    dense = k1.launches - before
+    assert 1 <= dense <= m.num_iterations, (dense, m.num_iterations)
+    check(m, mini, hg.n, "mini")
+    t_h = timed_path(lambda: kcore(g), device, h.num_iterations)
+    log(f"# phase 15: kcore hindex: {h.num_iterations} steps, largest core "
+        f"{h.largest_k_core}, {t_h}; bitwise kcore_cpu_true "
+        f"({s_true:.2f} s), launches = steps")
+    t_m = timed_path(lambda: kcore(g, "mini"), device, m.num_iterations)
+    log(f"# phase 15: kcore mini: {m.num_iterations} peel rounds "
+        f"({dense} dense, {m.num_iterations - dense} sparse), largest core "
+        f"{m.largest_k_core}, {t_m}; bitwise kcore_cpu ({s_mini:.2f} s)")
+
+    hd = rmat(SCALE, edge_factor=16, seed=0, undirected=False)
+    gd = GraphSlice.from_host(hd, device=device)
+    want, s_want = oracle(kcore_cpu, hd)
+    d = kcore(gd)
+    check(d, want, hd.n, "directed auto")
+    try:
+        kcore(gd, "hindex")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("hindex ran on a directed graph")
+    t_d = timed_path(lambda: kcore(gd), device, d.num_iterations)
+    log(f"# phase 15: kcore auto on directed rmat{SCALE} (m={hd.m}): mini, "
+        f"{d.num_iterations} peel rounds, largest core {d.largest_k_core}, "
+        f"{t_d}; bitwise kcore_cpu ({s_want:.2f} s); hindex raises "
+        f"ValueError")
+
+
+COLORING_PRIME = 1000003
+
+
+def generic_coloring(gg, max_iter=None, seed=0, K=8):
+    """The generic coloring path at K hash orders, its seeds drawn as
+    ``coloring`` draws them."""
+    import torch
+
+    from mini_tpu_torch.algorithms.coloring import _coloring_generic
+
+    gen = torch.Generator().manual_seed(seed)
+    return _coloring_generic(
+        gg, lambda it: torch.randint(COLORING_PRIME, (gg.n_pad,),
+                                     generator=gen, dtype=torch.int32),
+        max(2 * gg.n, 64) if max_iter is None else max_iter, K)
+
+
+def phase_coloring(hg, g, device):
+    """Coloring on the RMAT graph, K=16 (the fast path), K=1 (the
+    reference's recipe) and the generic path at K=8: each proper
+    (``validate_coloring``) with the ghosts at 0, one segment-reduce launch
+    a round, and its first 8 rounds bitwise the same call's on the CPU."""
+    import torch
+
+    from mini_tpu_torch.algorithms import coloring, validate_coloring
+    from mini_tpu_torch.graph import GraphSlice
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+
+    g_cpu = GraphSlice.from_host(hg, device="cpu")
+    runs = {
+        "K=16 fast": lambda gg, **kw: coloring(gg, **kw),
+        "K=1": lambda gg, **kw: coloring(gg, hashes_per_round=1, **kw),
+        "K=8 generic": generic_coloring,
+    }
+    for label, run in runs.items():
+        before = k1.launches
+        r = run(g)
+        assert k1.launches - before == r.num_iterations, (label, r)
+        colors = r.colors.cpu().numpy()
+        ok, s_ok = oracle(validate_coloring, colors, hg)
+        assert ok, label
+        assert not colors[hg.n:].any(), label
+        t0 = time.perf_counter()
+        on_cpu = run(g_cpu, max_iter=8)
+        s_cpu = time.perf_counter() - t0
+        assert on_cpu.num_iterations == min(8, r.num_iterations), label
+        assert torch.equal(run(g, max_iter=8).colors.cpu(), on_cpu.colors)
+        log(f"# phase 16: coloring {label}: {r.num_iterations} rounds, "
+            f"{len(np.unique(colors[: hg.n]))} colors, "
+            f"{timed_path(lambda: run(g), device, r.num_iterations)}; proper "
+            f"(validate_coloring {s_ok:.2f} s), "
+            f"{on_cpu.num_iterations} rounds bitwise the CPU's "
+            f"({s_cpu:.2f} s)")
+    # the first round alone, by kernel: where a round's device time goes
+    events = device_events(lambda: coloring(g, max_iter=1), device, 3)
+    by_name = {}
+    for name, us in events:
+        by_name[name[:48]] = by_name.get(name[:48], 0.0) + us / 3e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"# phase 16: one K=16 round: {len(events) / 3:.0f} device ops, "
+        f"{sum(by_name.values()):.4f} ms busy; by kernel (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in top))
+
+
+def phase_lspar(hg, g, device):
+    """L-Spar (``prime=999983, e=0.5, seed=0``): one segment-reduce launch;
+    the count, per vertex too, equal ``lspar_cpu``'s and the top-by-sim
+    property holds; the mask bitwise the CPU's."""
+    import torch
+
+    from mini_tpu_torch.algorithms import lspar, lspar_cpu
+    from mini_tpu_torch.graph import GraphSlice
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+
+    prime, e, seed = 999983, 0.5, 0
+    before = k1.launches
+    r = lspar(g, prime, e, seed)
+    assert k1.launches - before == 1, k1.launches - before
+    rng = np.random.RandomState(seed)
+    a, b = rng.randint(1, prime), rng.randint(0, prime)
+    hashs = ((b + a * np.arange(g.n_pad, dtype=np.int64)) % prime).astype(
+        np.int32)
+    (want, count), s_want = oracle(lspar_cpu, hg, hashs, e)
+    assert int(r.num_selected) == count, (int(r.num_selected), count)
+    sel = r.selected_mask.cpu().numpy()[: hg.m]
+    srcs = hg.csr_srcs
+    np.testing.assert_array_equal(np.bincount(srcs[sel], minlength=hg.n),
+                                  np.bincount(srcs[want], minlength=hg.n))
+    sims = r.sims.cpu().numpy()[: hg.m]
+    low_in = np.full(hg.n, 2)  # least sim of a vertex's selected edges
+    np.minimum.at(low_in, srcs[sel], sims[sel])
+    high_out = np.full(hg.n, -1)  # greatest sim of its unselected ones
+    np.maximum.at(high_out, srcs[~sel], sims[~sel])
+    assert (low_in >= high_out).all()
+    on_cpu = lspar(GraphSlice.from_host(hg, device="cpu"), prime, e, seed)
+    assert torch.equal(r.selected_mask.cpu(), on_cpu.selected_mask)
+    assert torch.equal(r.sims.cpu(), on_cpu.sims)
+    log(f"# phase 17: lspar: {count} of {hg.m} edges selected, "
+        f"{timed_path(lambda: lspar(g, prime, e, seed), device, 1)}; counts "
+        f"lspar_cpu's ({s_want:.2f} s), mask bitwise the CPU's")
+
+
 # kernel -> (wrapper module, its launch counter, source, the TPU kernel)
 KERNELS = {
     "segment_reduce": ("segreduce_kernel", "launches",
@@ -1956,6 +2141,9 @@ def main(argv) -> None:
         drive("sssp_grid", phase_sssp_grid, device),
         drive("pagerank", phase_pagerank, hg, g, device),
         drive("cc", phase_cc, hg, g, device),
+        drive("kcore", phase_kcore, hg, g, device),
+        drive("coloring", phase_coloring, hg, g, device),
+        drive("lspar", phase_lspar, hg, g, device),
     ]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():

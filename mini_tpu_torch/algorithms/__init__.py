@@ -22,3 +22,20 @@ from mini_tpu_torch.algorithms.cc import (  # noqa: F401
     cc_cpu,
     connected_components,
 )
+from mini_tpu_torch.algorithms.coloring import (  # noqa: F401
+    ColoringResult,
+    coloring,
+    validate_coloring,
+)
+from mini_tpu_torch.algorithms.kcore import (  # noqa: F401
+    KCoreResult,
+    kcore,
+    kcore_cpu,
+    kcore_cpu_true,
+)
+from mini_tpu_torch.algorithms.lspar import (  # noqa: F401
+    LsparResult,
+    is_prime,
+    lspar,
+    lspar_cpu,
+)

@@ -60,7 +60,7 @@ def _reduce(offsets, seg_ids, edge_vals, op, identity):
         ) > 0
     if op == "sum" and not edge_vals.dtype.is_floating_point:
         return segment_reduce(offsets, seg_ids, edge_vals, "sum")
-    if op not in ("min", "max", "sum"):
+    if op not in ("min", "max", "sum", "bor"):
         raise ValueError(f"unknown op {op!r}")
     out = segment_reduce(offsets, seg_ids, edge_vals, op)
     if identity is not None:  # the value of empty segments
@@ -102,9 +102,11 @@ def reduce_csc_by_dst(
     """Segmented reduce of CSC-ordered per-edge values (``[m_pad]``, or
     ``[m_pad, H]`` reduced column by column) into ``[n_pad]`` (``[n_pad,
     H]``) dst slots.  ``op``: ``or`` (bool result), ``min``, ``max``,
-    ``sum``; ``identity`` (min/max/float sum) replaces the default value
-    of empty segments.  The float ``sum`` with no identity is
-    differentiable; the other reduces take no gradient."""
+    ``sum``, ``bor`` (the bitwise or of int32 words, bit 31 included;
+    other dtypes raise ``TypeError``); ``identity`` (min/max/bor/float
+    sum) replaces the default value of empty segments.  The float ``sum``
+    with no identity is differentiable; the other reduces take no
+    gradient."""
     return _reduce_op(g.col_offsets, g.csc_dsts, edge_vals, op, identity)
 
 

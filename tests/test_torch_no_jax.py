@@ -24,6 +24,9 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 assert len(names) >= 20, names
+assert {"mini_tpu_torch.ops.sort", "mini_tpu_torch.algorithms.kcore",
+        "mini_tpu_torch.algorithms.coloring",
+        "mini_tpu_torch.algorithms.lspar"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mini_tpu"))
 assert not leaked, leaked

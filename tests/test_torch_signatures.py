@@ -1,14 +1,17 @@
-"""Port parity of the argument lists: ``bfs``, ``spmm``, ``sddmm`` and
-the functions of the traversal slice (``bfs_batch``, ``sssp``,
+"""Port parity of the argument lists: ``bfs``, ``spmm``, ``sddmm``, the
+functions of the traversal slice (``bfs_batch``, ``sssp``,
 ``sssp_batch``, ``pagerank``, ``connected_components``,
-``neighborhood_reduce``, ``segment_reduce``) of ``mini_tpu_torch`` take the
-parameters of ``mini_tpu``'s, in its order and with its defaults, so the
-same positional call means the same in both packages.  Every call below
-hands both packages the same positional arguments (numpy arrays wrapped
-for each) and compares the results: BFS labels, SSSP dists and preds and
-CC bitwise, SpMM, SDDMM and PageRank within float32 rounding of a sum
-taken in another order (rtol and atol 1e-5; PageRank rtol 1e-4, atol
-1e-6)."""
+``neighborhood_reduce``, ``segment_reduce``) and of the peeling slice
+(``kcore`` and its oracles, ``coloring``, ``validate_coloring``, ``lspar``,
+``lspar_cpu``, ``segment_sort``, ``segment_argsort``) of ``mini_tpu_torch``
+take the parameters of ``mini_tpu``'s, in its order and with its
+defaults, so the same positional call means the same in both packages.
+Every call below hands both packages the same positional arguments (numpy
+arrays wrapped for each) and compares the results: BFS labels, SSSP dists
+and preds, CC, k-core, L-Spar and the sorts bitwise, SpMM, SDDMM and
+PageRank within float32 rounding of a sum taken in another order (rtol
+and atol 1e-5; PageRank rtol 1e-4, atol 1e-6); coloring, whose draws
+differ, by its round cap, its colors' range and the oracle."""
 
 import inspect
 import sys
@@ -23,6 +26,7 @@ import mini_tpu.algorithms as jalg
 import mini_tpu.ops as jops
 from mini_tpu.algorithms import bfs as jbfs
 from mini_tpu.graph import banded as jbanded
+from mini_tpu.ops import sort as jsort
 from mini_tpu.ops.spmm import sddmm as jsddmm
 from mini_tpu.ops.spmm import spmm as jspmm
 import mini_tpu_torch.graph as tg
@@ -30,6 +34,7 @@ import mini_tpu_torch.algorithms as talg
 import mini_tpu_torch.ops as tops
 from mini_tpu_torch.algorithms import bfs as tbfs
 from mini_tpu_torch.graph import banded as tbanded
+from mini_tpu_torch.ops import sort as tsort
 from mini_tpu_torch.ops.spmm import sddmm as tsddmm
 from mini_tpu_torch.ops.spmm import spmm as tspmm
 
@@ -60,10 +65,17 @@ SLICE = [(getattr(jalg, n), getattr(talg, n)) for n in (
         "reduce_by_dst", "reduce_by_src", "uniquify", "compact_mask")]
 
 
+# k-core, coloring, L-Spar and the segmented sort
+PEELING = [(getattr(jalg, n), getattr(talg, n)) for n in (
+    "kcore", "kcore_cpu", "kcore_cpu_true", "coloring", "validate_coloring",
+    "lspar", "lspar_cpu")] + [(jsort.segment_sort, tsort.segment_sort),
+                              (jsort.segment_argsort, tsort.segment_argsort)]
+
+
 @pytest.mark.parametrize("jfn,tfn", [(jbfs, tbfs), (jspmm, tspmm),
-                                     (jsddmm, tsddmm)] + SLICE,
+                                     (jsddmm, tsddmm)] + SLICE + PEELING,
                          ids=["bfs", "spmm", "sddmm"]
-                         + [j.__name__ for j, _ in SLICE])
+                         + [j.__name__ for j, _ in SLICE + PEELING])
 def test_parameters_are_the_jax_package_s(jfn, tfn):
     want = inspect.signature(jfn).parameters
     got = inspect.signature(tfn).parameters
@@ -250,3 +262,50 @@ def test_traversal_same_call_same_result(graphs):
         gt, 2)
     np.testing.assert_array_equal(got.components.numpy(),
                                   np.asarray(want.components))
+
+
+def test_peeling_same_call_same_result(graphs):
+    gj, gt = graphs
+    hj, ht = build(jg, "random"), build(tg, "random")
+    for variant in ("mini", "hindex", "auto"):
+        want, got = jalg.kcore(gj, variant), talg.kcore(gt, variant)
+        np.testing.assert_array_equal(got.num_cores.numpy(),
+                                      np.asarray(want.num_cores))
+        assert got.num_iterations == int(want.num_iterations)
+    for oracle in ("kcore_cpu", "kcore_cpu_true"):
+        want, got = getattr(jalg, oracle)(hj), getattr(talg, oracle)(ht)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1]
+    want, got = jalg.lspar(gj, 1000003, 0.6, 2), talg.lspar(gt, 1000003, 0.6,
+                                                             2)
+    np.testing.assert_array_equal(got.selected_mask.numpy(),
+                                  np.asarray(want.selected_mask))
+    hashs = np.arange(gt.n_pad, dtype=np.int32) % 97
+    want, got = jalg.lspar_cpu(hj, hashs, 0.6), talg.lspar_cpu(ht, hashs, 0.6)
+    np.testing.assert_array_equal(got[0], want[0])
+    # prime, max_iter, seed, hashes_per_round: one round of 2 hash orders
+    for K in (2, 1):
+        want = jalg.coloring(gj, 7, 1, 5, K)
+        got = talg.coloring(gt, 7, 1, 5, K)
+        assert got.num_iterations == int(want.num_iterations) == 1
+        for colors in (got.colors.numpy(), np.asarray(want.colors)):
+            assert colors.max() <= 2 * K and (colors > 0).any()
+            assert jalg.validate_coloring(colors, hj) == \
+                talg.validate_coloring(colors, ht) is False
+    full = talg.coloring(gt, 7, None, 5, 2).colors.numpy()
+    assert jalg.validate_coloring(full, hj) == talg.validate_coloring(
+        full, ht) is True
+    rng = np.random.RandomState(0)
+    keys = rng.randint(0, 9, gt.m_pad).astype(np.int32)
+    pay = rng.rand(gt.m_pad).astype(np.float32)
+    seg = gt.csr_srcs.numpy()
+    want = jsort.segment_sort(jnp.asarray(keys), jnp.asarray(seg),
+                              jnp.asarray(pay), descending=True)
+    got = tsort.segment_sort(torch.from_numpy(keys), torch.from_numpy(seg),
+                             torch.from_numpy(pay), descending=True)
+    for w, g_ in zip(want, got):
+        np.testing.assert_array_equal(g_.numpy(), np.asarray(w))
+    want = jsort.segment_argsort(jnp.asarray(keys), jnp.asarray(seg), True)
+    got = tsort.segment_argsort(torch.from_numpy(keys), torch.from_numpy(seg),
+                                True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
