@@ -9,7 +9,7 @@ Phases; any failure ends with a traceback and a non-zero exit:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    the CUDA kernels built from ``mini_tpu_torch/csrc/``, one nvcc per
-   source, all started together;
+   source, and the native graph loader (g++), all started together;
 2. each kernel against its plain torch version on the card, at the main
    path's shapes (RMAT scale 16): the row gather bitwise, also at the
    shapes of the three TPU probes it replaces; the permutation bitwise at
@@ -75,8 +75,24 @@ Phases; any failure ends with a traceback and a non-zero exit:
     the top-by-sim property, the mask bitwise the CPU's;
     phases 9-17 print their time (min of 3), their device ops a round and
     their device idle share, and phases 15-17 each oracle's time;
-18. the script's time, one JSON line of the kernels (launch counts of
-   phases 3-17, each phase counted from 0; phase 2's errors, both times,
+18. the command-line drivers (``mini_tpu_torch.cli.main``) on the card:
+    the ten subcommands on ``--rmat-scale 16`` from the hub with
+    ``--validate`` (``lspar`` without), each a path of its own;
+    tests/test_cli.py's fixture invocations; ``python -m
+    mini_tpu_torch.cli bfs`` as a process of its own;
+19. ``synthetic_arxiv_like(scale=17)``: the native host build bitwise the
+    NumPy path, both timed; on its K=5 layouts (pull and push, F=128 and
+    40) the segment sum within SUM_TOL of its plain version and the row
+    gather bitwise (launches not counted); the GCN [128, 128, 40]
+    forward against ``gcn_forward_cpu`` (rtol 1e-4, atol 1e-5) and the
+    first step's loss and gradients against ``impl="xla"``; 40 steps,
+    test accuracy above 0.7; a checkpoint after step 20 whose resumed
+    step 21 is bitwise the live one; a ``trace()`` holding the five
+    profiling scopes and the kernels; a ``scope``'s host cost with no
+    profiler, and a BFS's scope uses a round;
+20. ``mini_tpu_torch.entry.entry()`` against ``gcn_forward_cpu``;
+21. the script's time, one JSON line of the kernels (launch counts of
+   phases 3-20, each path counted from 0; phase 2's errors, both times,
    bounds and library calls),
    then the last line ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
@@ -86,6 +102,7 @@ With no CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -281,13 +298,23 @@ def phase_build():
     )
     card = smi.stdout.strip().splitlines()[0]
     log(card)
+    import mini_tpu_torch.native as nat
+
+    def build_native():
+        t0 = time.perf_counter()
+        assert nat.native_available(), nat.native_build_error()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
     names = ("segreduce", "spmm_banded", "gather_rows", "permute")
-    with ThreadPoolExecutor(len(names)) as pool:
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        native = pool.submit(build_native)
         paths = list(pool.map(_build.build, names))
+        t_native = native.result()
     for name, path in zip(names, paths):
         log(f"# built {os.path.relpath(path)} in "
             f"{_build.last_build_seconds[name]:.2f} s")
+    log(f"# built the native graph loader (g++) in {t_native:.2f} s")
     log(f"# phase 1: kernels built in {time.perf_counter() - t0:.2f} s")
     return card
 
@@ -608,11 +635,10 @@ def band_messages(layout, dev, F, dtype, rng, device) -> list:
     return msgs
 
 
-def check_banded_sum(label, layout, dev, msgs, device):
-    """Kernel 2 on the layout's cached schedule: within SUM_TOL of the
-    plain version, two launches bitwise equal, bitwise equal to the plain
-    emulation of its schedule; its time against its bound, the plain
-    version and ``index_add_`` over the concatenated real slots."""
+def banded_sum_agrees(label, dev, msgs, device) -> tuple:
+    """Kernel 2 on a layout's cached schedule within SUM_TOL of the plain
+    version, two launches bitwise equal, bitwise the plain emulation of
+    its schedule; returns (max abs error, its limit)."""
     import torch
 
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
@@ -630,6 +656,21 @@ def check_banded_sum(label, layout, dev, msgs, device):
     assert err <= limit, (label, err, limit)
     assert torch.equal(got, again), f"{label}: two launches differ"
     assert torch.equal(got, emulated), f"{label}: not the emulated schedule"
+    return err, limit
+
+
+def check_banded_sum(label, layout, dev, msgs, device):
+    """Kernel 2 on the layout's cached schedule: within SUM_TOL of the
+    plain version, two launches bitwise equal, bitwise equal to the plain
+    emulation of its schedule; its time against its bound, the plain
+    version and ``index_add_`` over the concatenated real slots."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    err, limit = banded_sum_agrees(label, dev, msgs, device)
+    args = (dev["bounds"], dev["offs2d"], msgs)
+    prefix = dev["row_prefix"]
     F, elem = msgs[0].shape[1], msgs[0].element_size()
     real = [int(b) for b in layout.bounds[:, -1]]
     bnd = bound(sum(real) * F * elem + layout.n_pad * F * 4
@@ -2043,6 +2084,379 @@ def phase_lspar(hg, g, device):
         f"lspar_cpu's ({s_want:.2f} s), mask bitwise the CPU's")
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FIXDIR = os.path.join(ROOT, "tests", "fixtures")
+# tests/test_cli.py's invocations on the fixture files, in its order
+CLI_FIXTURES = [
+    [algo, "--file", os.path.join(FIXDIR, f), "--undirected", *more]
+    for algo, f, more in (
+        ("bfs", "test_bfs.mtx", ("--src", "0", "--validate")),
+        ("sssp", "test_bfs.mtx", ("--src", "0", "--validate")),
+        ("pr", "test_bfs.mtx", ("--validate",)),
+        ("coloring", "test_bfs.mtx", ("--validate",)),
+        ("kcore", "test_bfs.mtx", ("--validate",)),
+        ("lspar", "test_bfs.mtx", ()),
+        ("coloring", "test_coloring.mtx", ("--seed", "31", "--validate")),
+        ("pr", "test_coloring.mtx", ("--validate",)),
+        ("lspar", "test_coloring.mtx", ()),
+        ("sssp", "test_sssp.mtx", ("--src", "0", "--validate")),
+        ("kcore", "test_kcore.mtx", ("--validate",)),
+        ("gcn", "test_kcore.mtx", ("--validate",)),
+        ("cc", "test_bfs.mtx", ("--validate",)),
+        ("bfs", "test_bfs.mtx", ("--sources", "0,2,5", "--validate")),
+        ("sssp", "test_bfs.mtx", ("--sources", "0,3", "--validate")),
+    )
+]
+CLI_ALGOS = ("bfs", "sssp", "pr", "coloring", "kcore", "lspar", "cc", "gcn",
+             "gat", "sage")
+
+
+def run_cli(argv) -> list:
+    """``mini_tpu_torch.cli.main(argv)`` in this process, on the card: it
+    must return 0 and, with ``--validate``, print ``Correct.``; its
+    printed lines."""
+    import contextlib
+    import io
+
+    from mini_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    lines = out.getvalue().splitlines()
+    assert rc == 0, (argv, rc, lines)
+    if "--validate" in argv:
+        assert lines[-1] == "Correct.", (argv, lines)
+    return lines
+
+
+def phase_cli(hub: int) -> list:
+    """The command-line drivers on the card, in this process: each of the
+    ten subcommands on ``--rmat-scale 16`` (``rmat(16, 16, seed=0)``,
+    undirected) from the hub, with ``--validate`` (``lspar`` has no
+    oracle), each counted as a path of its own; tests/test_cli.py's
+    invocations on the fixture files; then ``python -m
+    mini_tpu_torch.cli`` once as a process of its own.  Returns the
+    launch counts of the paths."""
+    t_phase = time.perf_counter()
+    counts = []
+    for algo in CLI_ALGOS:
+        argv = [algo, "--rmat-scale", str(SCALE), "--src", str(hub)]
+        argv += [] if algo == "lspar" else ["--validate"]
+        t0 = time.perf_counter()
+        lines = []
+        counts.append(drive(f"cli {algo}", lambda: lines.extend(
+            run_cli(argv))))
+        shown = [ln for ln in lines if not ln.startswith(("labels[", "dists[",
+                                                          "top-10", " "))]
+        log(f"# cli {' '.join(argv)}: {' | '.join(shown)} "
+            f"({time.perf_counter() - t0:.2f} s with the oracle)")
+    t0 = time.perf_counter()
+    counts.append(drive("cli fixtures", lambda: [run_cli(a)
+                                                  for a in CLI_FIXTURES]))
+    log(f"# cli: tests/test_cli.py's {len(CLI_FIXTURES)} fixture "
+        f"invocations passed in {time.perf_counter() - t0:.2f} s")
+    argv = ["bfs", "--rmat-scale", str(SCALE), "--src", str(hub),
+            "--validate"]
+
+    def module_entry():  # its launches are the child's, not counted here
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "mini_tpu_torch.cli", *argv], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert proc.stdout.splitlines()[-1] == "Correct.", proc.stdout[-2000:]
+        log(f"# cli: python -m mini_tpu_torch.cli {' '.join(argv)}: "
+            f"Correct. ({time.perf_counter() - t0:.2f} s, the process "
+            "included)")
+
+    counts.append(drive("cli module entry", module_entry))
+    log(f"# phase 18: cli passed in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+ARXIV = dict(scale=17, feature_dim=128, num_classes=40, seed=0)
+ARXIV_DIMS = [128, 128, 40]
+ARXIV_STEPS, ARXIV_LR, ARXIV_RESUME = 40, 0.1, 20
+HOST_FIELDS = ("row_offsets", "csr_dsts", "csr_srcs", "csr_weights",
+               "col_offsets", "csc_srcs", "csc_dsts", "csc_weights",
+               "csc_eids")
+SCOPES = ("spmm.band_gather_0", "spmm.banded_kernel", "engine.src_to_csc",
+          "engine.expand_dst", "engine.segreduce_dst.")
+TRACED_KERNELS = ("banded_segment_sum_kernel", "gather_rows_kernel",
+                  "segreduce_walk_kernel")
+
+
+def phase_arxiv(device):
+    """``synthetic_arxiv_like(scale=17)`` (131,072 vertices, 4,194,304
+    edges): its graph from the native builder, bitwise the NumPy path on
+    the same edges, both timed; GCN [128, 128, 40] trained 40 steps at lr
+    0.1 on the banded path, the loss falling and test accuracy above 0.7
+    (tests/test_datasets.py's bar); after step 20 the params and momentum
+    saved and loaded into a fresh structure, step 21 from the loaded state
+    bitwise step 21 from the live one; one step and a BFS under
+    ``trace()``, whose Chrome trace holds the five scopes and the port's
+    kernels; the host cost of a ``scope`` with no profiler."""
+    import json
+    import tempfile
+
+    import torch
+
+    import mini_tpu_torch.native as nat
+    from mini_tpu_torch.algorithms import bfs, bfs_cpu
+    from mini_tpu_torch.graph import GraphSlice
+    from mini_tpu_torch.graph.csr import from_edges_numpy
+    from mini_tpu_torch.graph.datasets import synthetic_arxiv_like
+    from mini_tpu_torch.models.gcn import (
+        gcn_forward, gcn_forward_cpu, gcn_init, gcn_init_opt, gcn_normalize,
+        gcn_train_step,
+    )
+    from mini_tpu_torch.ops import engine
+    from mini_tpu_torch.utils import load_pytree, save_pytree, scope, trace
+    from mini_tpu_torch.utils.profiling import scope_of
+    from mini_tpu_torch.utils.timing import time_fn
+
+    t_phase = time.perf_counter()
+    assert nat.native_available(), nat.native_build_error()
+    builds = []
+    real = nat.native_from_edges
+
+    def timed_native(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        builds.append((a, k, time.perf_counter() - t0, out))
+        return out
+
+    nat.native_from_edges = timed_native
+    try:
+        t0 = time.perf_counter()
+        ds = synthetic_arxiv_like(**ARXIV)
+        t_ds = time.perf_counter() - t0
+    finally:
+        nat.native_from_edges = real
+    hg = ds.graph
+    n_want = 2 ** ARXIV["scale"]  # 131,072 vertices, 4,194,304 edges
+    assert (hg.n, hg.m) == (n_want, 32 * n_want), (hg.n, hg.m)
+    (srcs, dsts, w, n), kw, t_native, built = builds[-1]
+    assert built is hg, "from_edges did not take the native builder"
+    t0 = time.perf_counter()
+    ref = from_edges_numpy(srcs, dsts, w, n, kw["directed"])
+    t_numpy = time.perf_counter() - t0
+    for f in HOST_FIELDS:
+        assert np.array_equal(getattr(ref, f), getattr(hg, f)), f
+    log(f"# arxiv s{ARXIV['scale']}: n={hg.n} m={hg.m}, dataset {t_ds:.2f} s; host build "
+        f"of its {hg.m} edges: native {t_native:.3f} s, NumPy "
+        f"{t_numpy:.3f} s, bitwise equal ({len(builds)} native builds)")
+
+    t0 = time.perf_counter()
+    gs = GraphSlice.from_host(hg, device=device)
+    norm = gcn_normalize(gs)
+    torch.cuda.synchronize(device)
+    log(f"# arxiv s{ARXIV['scale']}: device graph and GCN norm (banded layouts) "
+        f"{time.perf_counter() - t0:.2f} s")
+    with uncounted():
+        hold_gcn_kernels(f"arxiv s{ARXIV['scale']}", gs, ARXIV_DIMS,
+                         device)
+
+    def padded(a, dtype):
+        out = np.zeros((gs.n_pad,) + a.shape[1:], dtype)
+        out[: hg.n] = a
+        return torch.from_numpy(out).to(device)
+
+    x = padded(ds.features, np.float32)
+    labels = padded(ds.labels, np.int32)
+    train, test = padded(ds.train_mask, bool), padded(ds.test_mask, bool)
+
+    def step(p, o):
+        return gcn_train_step(p, o, gs, norm, x, (labels, train), ARXIV_LR)
+
+    def state_leaves(p, o):
+        return [d[k] for d in p + o for k in sorted(d)]
+
+    params = gcn_init(torch.Generator().manual_seed(0), ARXIV_DIMS,
+                      device=device)
+    opt = gcn_init_opt(params)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = gcn_forward(params, gs, norm, x).cpu().numpy()[: hg.n]
+    want = gcn_forward_cpu([{k: v.cpu().numpy() for k, v in p.items()}
+                            for p in params], hg, ds.features)
+    np.testing.assert_allclose(out, want, rtol=1e-4, atol=1e-5)
+    with uncounted():  # the plain step, for step 1's loss and gradients
+        _, grads_ref, loss_ref = gcn_train_step(
+            params, opt, gs, norm, x, (labels, train), ARXIV_LR, impl="xla")
+    log(f"# arxiv: GCN {ARXIV_DIMS} forward within rtol 1e-4, atol 1e-5 of "
+        f"gcn_forward_cpu (max abs err {np.abs(out - want).max():.3g}); "
+        f"{time.perf_counter() - t0:.2f} s with the xla step")
+    losses = []
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for i in range(ARXIV_STEPS):
+        if i == ARXIV_RESUME:
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "gcn.npz")
+                torch.cuda.synchronize(device)
+                t1 = time.perf_counter()
+                save_pytree(path, {"params": params, "opt": opt})
+                t_save = time.perf_counter() - t1
+                fresh = gcn_init(torch.Generator().manual_seed(1),
+                                 ARXIV_DIMS, device=device)
+                t1 = time.perf_counter()
+                state = load_pytree(path, {"params": fresh,
+                                           "opt": gcn_init_opt(fresh)})
+                torch.cuda.synchronize(device)
+                t_load = time.perf_counter() - t1
+            p_res, o_res, l_res = step(state["params"], state["opt"])
+            params, opt, loss = step(params, opt)
+            same = all(torch.equal(a, b) for a, b in zip(
+                state_leaves(p_res, o_res) + [l_res],
+                state_leaves(params, opt) + [loss]))
+            assert same, "the resumed step is not the live step bitwise"
+            log(f"# arxiv: checkpoint after step {ARXIV_RESUME}: save "
+                f"{t_save:.4f} s, load {t_load:.4f} s; step "
+                f"{ARXIV_RESUME + 1} from the loaded state bitwise the live "
+                f"one")
+        else:
+            params, opt, loss = step(params, opt)
+        if i == 0:  # from zero momentum the new momentum is the gradient
+            np.testing.assert_allclose(float(loss), float(loss_ref),
+                                       rtol=1e-4)
+            errs = [max_rel(gr[k], ref[k]) for gr, ref in zip(opt, grads_ref)
+                    for k in ("w", "b")]
+            assert max(errs) <= GRAD_TOL, errs
+            log(f"# arxiv: step 1 loss {float(loss):.6f} (xla "
+                f"{float(loss_ref):.6f}); grad max err/max|xla| "
+                f"{max(errs):.3g} (bound {GRAD_TOL})")
+        losses.append(loss)
+    torch.cuda.synchronize(device)
+    t_train = time.perf_counter() - t0
+    losses = torch.stack(losses).tolist()
+    with torch.no_grad():
+        pred = gcn_forward(params, gs, norm, x).argmax(-1)
+    acc = (pred[test] == labels[test]).float().mean().item()
+    t = time_fn(lambda: step(params, opt), warmup=1, repeat=5, device=device)
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert acc > 0.7, acc
+    log(f"# arxiv: GCN {ARXIV_DIMS} {ARXIV_STEPS} steps lr {ARXIV_LR}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, test accuracy {acc:.4f}; "
+        f"{t_train:.3f} s for the steps (checkpoint included), step "
+        f"{t.min_s * 1e3:.3f} ms (min of 5, CUDA events)")
+
+    hub = int(np.argmax(hg.out_degrees))
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            step(params, opt)
+            r = bfs(gs, hub)
+            torch.cuda.synchronize(device)
+        with open(os.path.join(d, "trace.json")) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    np.testing.assert_array_equal(r.labels.cpu().numpy()[: hg.n],
+                                  bfs_cpu(hg, hub))
+    for want in SCOPES + TRACED_KERNELS:
+        assert any(nm.startswith(want) or want in nm for nm in names), want
+    n_calls = 200_000
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        with scope("engine.src_to_csc"):
+            pass
+    t_scope = (time.perf_counter() - t0) / n_calls * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        with scope_of("engine.segreduce_dst.{}", "min"):
+            pass
+    t_scope_of = (time.perf_counter() - t0) / n_calls * 1e6
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        pass
+    t_loop = (time.perf_counter() - t0) / n_calls * 1e6
+    # a BFS's scope uses, against its time a round
+    uses, real_scopes = [0], (engine.scope, engine.scope_of)
+
+    def counting(f):
+        def counted(*a):
+            uses[0] += 1
+            return f(*a)
+        return counted
+
+    engine.scope, engine.scope_of = map(counting, real_scopes)
+    try:
+        bfs(gs, hub)
+    finally:
+        engine.scope, engine.scope_of = real_scopes
+    t_bfs = time_fn(lambda: bfs(gs, hub), warmup=1, repeat=3, device=device)
+    per_round = t_bfs.min_s * 1e6 / r.num_iterations
+    log(f"# arxiv: trace of one step and a BFS (hub {hub}, {r.num_iterations} "
+        f"rounds, labels bitwise bfs_cpu) holds the scopes {list(SCOPES)} "
+        f"and the kernels {list(TRACED_KERNELS)}; with no profiler a scope "
+        f"costs {t_scope:.3f} us of host a use, scope_of {t_scope_of:.3f} "
+        f"us ({t_loop:.3f} us of each the bare loop); the BFS enters "
+        f"{uses[0] / r.num_iterations:.2f} scopes a round, at "
+        f"{per_round:.1f} us a round (min of 3)")
+    log(f"# phase 19: arxiv passed in {time.perf_counter() - t_phase:.1f} s")
+
+
+def hold_gcn_kernels(label, gs, dims, device):
+    """The segment sum and the row gather on the GCN's layouts of ``gs``
+    (pull for the forward, push for the backward; one layout serves every
+    width up to 128) at each of ``dims[1:]``'s widths, float32: the sum
+    within SUM_TOL of its plain version, the gather bitwise."""
+    import torch
+
+    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
+
+    rng = np.random.RandomState(0)
+    worst = 0.0
+    for direction in ("pull", "push"):
+        layout = get_layout(gs, direction, row_bytes=128 * 4)
+        dev = layout.dev(device)
+        for F in sorted(set(dims[1:])):
+            msgs = band_messages(layout, dev, F, torch.float32, rng, device)
+            err, limit = banded_sum_agrees(f"{label} {direction} F={F}",
+                                           dev, msgs, device)
+            worst = max(worst, err / limit if limit else 0.0)
+            del msgs
+            x = torch.from_numpy(rng.randn(layout.n_pad, F).astype(
+                np.float32)).to(device)
+            for k in range(layout.K):
+                band = x[k * layout.band_rows: (k + 1) * layout.band_rows]
+                assert torch.equal(kg.gather_rows(band, dev["ids"][k]),
+                                   kg.gather_rows_plain(band, dev["ids"][k])
+                                   ), (label, direction, F, k)
+    log(f"# {label}: banded_segment_sum on the pull and push layouts (K="
+        f"{layout.K}) at F={sorted(set(dims[1:]))} within SUM_TOL of plain "
+        f"(worst {worst:.3g} of the bound), two launches and the emulated "
+        f"schedule bitwise; gather_rows bitwise index_select on every band")
+
+
+def phase_entry(device):
+    """``mini_tpu_torch.entry.entry()``'s ``fn(*args)`` on the card against
+    the float64 oracle ``gcn_forward_cpu`` (rtol 1e-4, atol 1e-5), timed."""
+    import torch
+
+    from mini_tpu_torch.entry import entry
+    from mini_tpu_torch.graph import erdos_renyi
+    from mini_tpu_torch.models.gcn import gcn_forward_cpu
+    from mini_tpu_torch.utils.timing import time_fn
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    params, gs, _, x = args
+    with torch.no_grad():
+        out = fn(*args)
+        t = time_fn(lambda: fn(*args), warmup=1, repeat=5, device=device)
+    assert out.is_cuda and tuple(out.shape) == (gs.n_pad, F_OUT), out.shape
+    hg = erdos_renyi(2048, 16384, seed=0, undirected=True)
+    want = gcn_forward_cpu([{k: v.cpu().numpy() for k, v in p.items()}
+                            for p in params], hg, x.cpu().numpy())
+    np.testing.assert_allclose(out.cpu().numpy()[: hg.n], want, rtol=1e-4,
+                               atol=1e-5)
+    log(f"# phase 20: entry(): GCN {[p['w'].shape[0] for p in params]} -> "
+        f"{F_OUT} on er2048 within rtol 1e-4, atol 1e-5 of gcn_forward_cpu; "
+        f"fn {t.min_s * 1e3:.3f} ms (min of 5); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # kernel -> (wrapper module, its launch counter, source, the TPU kernel)
 KERNELS = {
     "segment_reduce": ("segreduce_kernel", "launches",
@@ -2068,20 +2482,37 @@ KERNELS = {
 }
 
 
+def counters() -> dict:
+    """kernel -> (its wrapper module, the name of its launch counter)."""
+    import importlib
+
+    return {name: (importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}"),
+                   attr) for name, (m, attr, _, _) in KERNELS.items()}
+
+
 def drive(path: str, fn, *args) -> dict:
     """Run one main path with every launch counter set to 0 just before
     it; return the counts read just after."""
-    import importlib
-
-    mods = {name: importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}")
-            for name, (m, _, _, _) in KERNELS.items()}
-    for name, (_, attr, _, _) in KERNELS.items():
-        setattr(mods[name], attr, 0)
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
     fn(*args)
-    counts = {name: getattr(mods[name], attr)
-              for name, (_, attr, _, _) in KERNELS.items()}
+    counts = {name: getattr(mod, attr)
+              for name, (mod, attr) in counters().items()}
     log(f"# launches on {path}: {json.dumps(counts)}")
     return counts
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The launches of a comparison inside a driven path: every launch
+    counter is put back as it was before the block."""
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr) in counters().items()}
+    try:
+        yield
+    finally:
+        for name, (mod, attr) in counters().items():
+            setattr(mod, attr, saved[name])
 
 
 def main(argv) -> None:
@@ -2144,6 +2575,11 @@ def main(argv) -> None:
         drive("kcore", phase_kcore, hg, g, device),
         drive("coloring", phase_coloring, hg, g, device),
         drive("lspar", phase_lspar, hg, g, device),
+    ]
+    paths += phase_cli(int(np.argmax(hg.out_degrees)))
+    paths += [
+        drive("arxiv", phase_arxiv, device),
+        drive("entry", phase_entry, device),
     ]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():

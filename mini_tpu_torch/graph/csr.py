@@ -94,6 +94,29 @@ def from_edges(
     n = int(num_nodes)
     m = int(srcs.shape[0])
 
+    # Large edge lists take the native C++ radix-sort builder (bitwise the
+    # NumPy path below; mini_tpu's threshold, which keeps small graphs off
+    # the ctypes round trip).  Without the library it returns None, having
+    # warned why, and the NumPy path builds the same arrays.
+    if m >= (1 << 20) and n < (1 << 31):
+        from mini_tpu_torch.native import native_from_edges
+
+        hg = native_from_edges(srcs, dsts, weights, n, directed=directed)
+        if hg is not None:
+            return hg
+    return from_edges_numpy(srcs, dsts, weights, n, directed)
+
+
+def from_edges_numpy(
+    srcs: np.ndarray,
+    dsts: np.ndarray,
+    weights: np.ndarray,
+    n: int,
+    directed: bool,
+) -> HostGraph:
+    """:func:`from_edges`'s NumPy path (the native builder's oracle) on a
+    normalized edge list: int64 ids in ``[0, n)``, float32 weights."""
+    m = int(srcs.shape[0])
     # CSR: sort by (src, dst); CSC: sort by (dst, src).  np.lexsort is stable,
     # last key is primary.
     csr_order = np.lexsort((dsts, srcs))

@@ -5,8 +5,9 @@ Parity with gunrock/mini's loader (`src/graph.hxx:96-223`):
 optional undirected doubling, optional random integer weights in [0, 64)
 (default weight 1.0).  Column 1 is the source by default;
 ``transpose=True`` reproduces gunrock's column-2-as-source CSR
-(`graph.hxx:166-171`).  The same code as ``mini_tpu.graph.io`` on its
-NumPy path.
+(`graph.hxx:166-171`).  The same code as ``mini_tpu.graph.io``: the native
+C++ parser first (``mini_tpu_torch.native``), the NumPy path as its
+fallback and oracle.
 """
 
 from __future__ import annotations
@@ -55,8 +56,24 @@ def load_mtx(
     random_weights: bool = False,
     seed: int = 0,
     transpose: bool = False,
+    use_native: bool = True,
 ) -> HostGraph:
-    """Load a graph from an .mtx file into a :class:`HostGraph`."""
+    """Load a graph from an .mtx file into a :class:`HostGraph`:
+    ``use_native`` tries the native parser first (``mini_tpu_torch.native``,
+    bitwise the NumPy path, which it falls back to when the library is
+    unavailable or declines the request)."""
+    if use_native:
+        from mini_tpu_torch.native import native_load_mtx
+
+        hg = native_load_mtx(
+            path,
+            undirected=undirected,
+            random_weights=random_weights,
+            seed=seed,
+            transpose=transpose,
+        )
+        if hg is not None:
+            return hg
     srcs, dsts, weights, n = parse_mtx_edges(
         path, random_weights=random_weights, seed=seed
     )

@@ -65,17 +65,23 @@ def sage_forward(
 def sage_forward_cpu(
     params_np: list[dict], hg: HostGraph, x: np.ndarray
 ) -> np.ndarray:
-    """Dense NumPy oracle in float64 (an ``n x n`` multiplicity matrix:
-    small graphs only)."""
+    """NumPy/scipy oracle in float64: the mean over in-edges as a sparse
+    multiplicity matrix (``mini_tpu``'s dense ``n x n`` one, which holds
+    only small graphs, summed the same way up to float64 rounding)."""
+    import scipy.sparse as sp
+
     n = hg.n
-    mult = np.zeros((n, n))
-    np.add.at(mult, (hg.csr_srcs, hg.csr_dsts), 1.0)
+    # pull: row = dst, col = src; duplicate edges sum to their multiplicity
+    mult_t = sp.csr_matrix(
+        (np.ones(hg.m), (hg.csr_dsts, hg.csr_srcs)), shape=(n, n),
+        dtype=np.float64,
+    )
     inv_deg = np.where(
         hg.in_degrees > 0, 1.0 / np.maximum(hg.in_degrees, 1), 0.0
     )
     h = x[:n].astype(np.float64)
     for i, layer in enumerate(params_np):
-        agg = (mult.T @ h) * inv_deg[:, None]
+        agg = (mult_t @ h) * inv_deg[:, None]
         h = np.concatenate([h, agg], axis=-1) @ layer["w"] + layer["b"]
         if i < len(params_np) - 1:
             h = np.maximum(h, 0)

@@ -19,6 +19,7 @@ from mini_tpu_torch.ops.kernels.segreduce_kernel import (
     MAX_COLS,
     segment_reduce,
 )
+from mini_tpu_torch.utils.profiling import scope, scope_of
 
 
 def _gather(idx: torch.Tensor, vals: tuple):
@@ -29,12 +30,14 @@ def _gather(idx: torch.Tensor, vals: tuple):
 def src_vals_to_csc(g: GraphSlice, vertex_vals: torch.Tensor, *more):
     """per-edge value[src(e)] in CSC order; extra arrays ride along and
     come back as a tuple."""
-    return _gather(g.csc_srcs, (vertex_vals,) + more)
+    with scope("engine.src_to_csc"):
+        return _gather(g.csc_srcs, (vertex_vals,) + more)
 
 
 def dst_vals_to_csc(g: GraphSlice, vertex_vals: torch.Tensor) -> torch.Tensor:
     """per-edge value[dst(e)] in CSC order."""
-    return _gather(g.csc_dsts, (vertex_vals,))
+    with scope("engine.expand_dst"):
+        return _gather(g.csc_dsts, (vertex_vals,))
 
 
 def src_vals_to_csr(g: GraphSlice, vertex_vals: torch.Tensor) -> torch.Tensor:
@@ -107,7 +110,9 @@ def reduce_csc_by_dst(
     sum) replaces the default value of empty segments.  The float ``sum``
     with no identity is differentiable; the other reduces take no
     gradient."""
-    return _reduce_op(g.col_offsets, g.csc_dsts, edge_vals, op, identity)
+    with scope_of("engine.segreduce_dst.{}", op):
+        return _reduce_op(g.col_offsets, g.csc_dsts, edge_vals, op,
+                          identity)
 
 
 def reduce_csr_by_src(

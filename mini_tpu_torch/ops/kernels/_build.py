@@ -13,6 +13,9 @@ set), and keeps the bound function in a module-level name; every later
 launch is one call of it.  ``stream`` gives the current stream of a
 device as a raw handle, without building a ``torch.cuda.Stream`` object
 per call.
+
+:func:`compile_library` (hash-named library, private name, rename) also
+builds the native graph loader with g++ (``mini_tpu_torch/native``).
 """
 
 from __future__ import annotations
@@ -52,24 +55,50 @@ def find_nvcc() -> str | None:
     return cand if os.path.isfile(cand) else None
 
 
-def _lib_path(name: str, src: bytes) -> str:
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{h}.so")
+def compile_library(src_path: str, stem: str, compiler: str,
+                    flags: tuple, build_dir: str) -> tuple[str, float]:
+    """Compile ``src_path`` with ``compiler flags`` into
+    ``build_dir/lib<stem>_<hash>.so`` unless that library exists; the hash
+    covers the source and the flags.  Returns the path and the seconds the
+    compiler took (0.0 if the library was there).  Raises RuntimeError
+    when the compiler fails, with its output.
+
+    The library is written under a private name and renamed into place,
+    so processes that build at once never load a half-written file."""
+    import time
+
+    with open(src_path, "rb") as f:
+        src = f.read()
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    out = os.path.join(build_dir, f"lib{stem}_{h}.so")
+    if os.path.isfile(out):
+        return out, 0.0
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [compiler, *flags, "-o", tmp, src_path],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(compiler)} failed to build {src_path} "
+                f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out, time.perf_counter() - t0
 
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a library of the same source hash
     exists; return the library path.  Raises RuntimeError without nvcc or
     when nvcc fails."""
-    import time
-
     src_path = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src_path, "rb") as f:
-        src = f.read()
-    out = _lib_path(name, src)
-    if os.path.isfile(out):
-        last_build_seconds[name] = 0.0
-        return out
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -77,27 +106,9 @@ def build(name: str) -> str:
             f"($CUDA_HOME/bin, $PATH, {DEFAULT_CUDA_HOME}/bin); the CUDA "
             "toolkit is required to run the port on a GPU"
         )
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # build to a private name, then rename: concurrent builders never load
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, src_path],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed to build {src_path} "
-                f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    last_build_seconds[name] = time.perf_counter() - t0
+    out, seconds = compile_library(src_path, name, nvcc, NVCC_FLAGS,
+                                   BUILD_DIR)
+    last_build_seconds[name] = seconds
     return out
 
 

@@ -42,6 +42,7 @@ from mini_tpu_torch.ops.kernels.spmm_banded import (
 )
 from mini_tpu_torch.ops.kernels.spmm_kernel import spmm_pallas
 from mini_tpu_torch.ops.segment import segment_reduce
+from mini_tpu_torch.utils.profiling import scope, scope_of
 
 
 def spmm(
@@ -154,8 +155,11 @@ def _gather_bands(x, layout: BandedLayout, precision):
     dev = layout.dev(x.device)
     if precision == "fast" and x.dtype == torch.float32:
         x = x.to(torch.bfloat16)
-    return [gather_rows(_band(x, layout, k), dev["ids"][k])
-            for k in range(layout.K)]
+    bands = []
+    for k in range(layout.K):
+        with scope_of("spmm.band_gather_{}", k):
+            bands.append(gather_rows(_band(x, layout, k), dev["ids"][k]))
+    return bands
 
 
 def _apply_banded(x, layout: BandedLayout, w_list, precision, heads=1):
@@ -165,10 +169,11 @@ def _apply_banded(x, layout: BandedLayout, w_list, precision, heads=1):
     bands = _gather_bands(x, layout, precision)
     msgs = [_weigh(xg, w, heads) for xg, w in zip(bands, w_list)]
     dev = layout.dev(x.device)
-    return banded_segment_sum(
-        dev["bounds"], dev["offs2d"], msgs, precision=precision,
-        edge_chunk=layout.edge_chunk, row_prefix=dev["row_prefix"],
-    )
+    with scope("spmm.banded_kernel"):
+        return banded_segment_sum(
+            dev["bounds"], dev["offs2d"], msgs, precision=precision,
+            edge_chunk=layout.edge_chunk, row_prefix=dev["row_prefix"],
+        )
 
 
 def _weight_cotangent(x, go, layout: BandedLayout, precision, heads=1):

@@ -66,3 +66,16 @@ def time_fn(
         std_s=float(a.std()),
         runs=repeat,
     )
+
+
+class wall_timer:
+    """Context-manager wall clock (host time; for device work, end the
+    block with ``torch.cuda.synchronize()``)."""
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self.t0
+        return False

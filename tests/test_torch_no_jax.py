@@ -26,7 +26,10 @@ for name in names:
 assert len(names) >= 20, names
 assert {"mini_tpu_torch.ops.sort", "mini_tpu_torch.algorithms.kcore",
         "mini_tpu_torch.algorithms.coloring",
-        "mini_tpu_torch.algorithms.lspar"} <= set(names), names
+        "mini_tpu_torch.algorithms.lspar", "mini_tpu_torch.cli",
+        "mini_tpu_torch.entry", "mini_tpu_torch.native",
+        "mini_tpu_torch.graph.datasets", "mini_tpu_torch.utils.checkpoint",
+        "mini_tpu_torch.utils.profiling"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mini_tpu"))
 assert not leaked, leaked

@@ -1,6 +1,6 @@
 """Port parity: GraphSAGE of ``mini_tpu_torch`` against ``mini_tpu``'s
 with the JAX package's parameters carried across (forward, gradients, the
-train step), against the dense oracle ``sage_forward_cpu``, and the JAX
+train step), against the float64 oracle ``sage_forward_cpu``, and the JAX
 suite's falling-loss oracle on the port's own RNG."""
 
 import functools

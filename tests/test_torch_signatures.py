@@ -3,7 +3,10 @@ functions of the traversal slice (``bfs_batch``, ``sssp``,
 ``sssp_batch``, ``pagerank``, ``connected_components``,
 ``neighborhood_reduce``, ``segment_reduce``) and of the peeling slice
 (``kcore`` and its oracles, ``coloring``, ``validate_coloring``, ``lspar``,
-``lspar_cpu``, ``segment_sort``, ``segment_argsort``) of ``mini_tpu_torch``
+``lspar_cpu``, ``segment_sort``, ``segment_argsort``) and the drivers
+(``load_mtx``, ``from_edges``, the datasets, checkpoints, profiling
+scopes, ``wall_timer`` and the native loader; ``trace`` and ``time_fn``
+with one pinned divergence each) of ``mini_tpu_torch``
 take the parameters of ``mini_tpu``'s, in its order and with its
 defaults, so the same positional call means the same in both packages.
 Every call below hands both packages the same positional arguments (numpy
@@ -29,7 +32,13 @@ from mini_tpu.graph import banded as jbanded
 from mini_tpu.ops import sort as jsort
 from mini_tpu.ops.spmm import sddmm as jsddmm
 from mini_tpu.ops.spmm import spmm as jspmm
+import mini_tpu.native as jnative
+import mini_tpu.utils as jutils
+from mini_tpu.graph import datasets as jds
 import mini_tpu_torch.graph as tg
+import mini_tpu_torch.native as tnative
+import mini_tpu_torch.utils as tutils
+from mini_tpu_torch.graph import datasets as tds
 import mini_tpu_torch.algorithms as talg
 import mini_tpu_torch.ops as tops
 from mini_tpu_torch.algorithms import bfs as tbfs
@@ -72,10 +81,23 @@ PEELING = [(getattr(jalg, n), getattr(talg, n)) for n in (
                               (jsort.segment_argsort, tsort.segment_argsort)]
 
 
+# the drivers: loaders, datasets, checkpoints, profiling, timing, native
+DRIVERS = [(getattr(jg, n), getattr(tg, n)) for n in (
+    "load_mtx", "from_edges")] + [
+    (getattr(jds, n), getattr(tds, n)) for n in (
+        "NodeClassificationDataset", "load_npz_dataset",
+        "synthetic_arxiv_like")] + [
+    (getattr(jutils, n), getattr(tutils, n)) for n in (
+        "save_pytree", "load_pytree", "scope", "annotate", "wall_timer")] + [
+    (getattr(jnative, n), getattr(tnative, n)) for n in (
+        "native_available", "native_load_mtx", "native_from_edges")]
+
+
 @pytest.mark.parametrize("jfn,tfn", [(jbfs, tbfs), (jspmm, tspmm),
-                                     (jsddmm, tsddmm)] + SLICE + PEELING,
+                                     (jsddmm, tsddmm)] + SLICE + PEELING
+                         + DRIVERS,
                          ids=["bfs", "spmm", "sddmm"]
-                         + [j.__name__ for j, _ in SLICE + PEELING])
+                         + [j.__name__ for j, _ in SLICE + PEELING + DRIVERS])
 def test_parameters_are_the_jax_package_s(jfn, tfn):
     want = inspect.signature(jfn).parameters
     got = inspect.signature(tfn).parameters
@@ -83,6 +105,35 @@ def test_parameters_are_the_jax_package_s(jfn, tfn):
     for name in want:
         assert got[name].default == want[name].default, name
         assert got[name].kind == want[name].kind, name
+
+
+def test_drivers_pinned_divergences():
+    """Two driver parameters differ, on purpose.  ``trace``'s directory
+    defaults to ``mini_tpu_trace`` in the temporary directory (``$TMPDIR``)
+    where ``mini_tpu``'s is ``/tmp/mini_tpu_trace``; ``time_fn``'s fourth
+    parameter is the ``device`` it times on (CUDA events on the card)
+    where ``mini_tpu``'s is ``block``, the function that waits for JAX's
+    asynchronous result."""
+    want = inspect.signature(jutils.trace).parameters
+    got = inspect.signature(tutils.trace).parameters
+    assert list(got) == list(want) == ["dir_path"]
+    assert want["dir_path"].default == "/tmp/mini_tpu_trace"
+    assert got["dir_path"].default is None
+    want = inspect.signature(jutils.time_fn).parameters
+    got = inspect.signature(tutils.time_fn).parameters
+    assert list(want) == ["fn", "warmup", "repeat", "block"]
+    assert list(got) == ["fn", "warmup", "repeat", "device"]
+    for name in ("fn", "warmup", "repeat"):
+        assert got[name].default == want[name].default, name
+    assert got["device"].default is want["block"].default is None
+
+
+def test_utils_export_the_jax_package_s_names():
+    names = {n for n in vars(jutils) if not n.startswith("_")
+             and not inspect.ismodule(getattr(jutils, n))}
+    assert len(names) == 11, names
+    assert {n for n in vars(tutils) if not n.startswith("_")
+            and not inspect.ismodule(getattr(tutils, n))} == names
 
 
 @pytest.fixture(scope="module")
