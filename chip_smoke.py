@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase, on one card
     python3 chip_smoke.py --profile    # the GAT step's profile alone
     python3 chip_smoke.py --kernels    # phases 1 and 2 alone
+    python3 chip_smoke.py --parallel   # phases 1 and 21 alone
 
 Phases; any failure ends with a traceback and a non-zero exit:
 
@@ -91,8 +92,23 @@ Phases; any failure ends with a traceback and a non-zero exit:
     profiling scopes and the kernels; a ``scope``'s host cost with no
     profiler, and a BFS's scope uses a round;
 20. ``mini_tpu_torch.entry.entry()`` against ``gcn_forward_cpu``;
-21. the script's time, one JSON line of the kernels (launch counts of
-   phases 3-20, each path counted from 0; phase 2's errors, both times,
+21. ``mini_tpu_torch.parallel`` over NCCL, one rank a card
+    (``torch.cuda.device_count()`` ranks, started by ``run_ranks``), on
+    the rmat16 graph: ``dist_bfs`` from the hub with and without a halo
+    plan bitwise ``bfs_cpu`` (preds the min-id parent), ``dist_sssp``
+    bitwise ``sssp_cpu``, ``dist_cc`` ``cc_cpu``, ``dist_kcore``
+    ``kcore_cpu_true``, ``dist_coloring`` the single-device ``coloring``
+    (the same salts), ``dist_lspar``'s count ``lspar_cpu``'s,
+    ``dist_pagerank`` within rtol 1e-3 of ``pagerank``; ``dist_spmm`` and
+    ``halo_spmm`` (overlap off and on) at F=128 within rtol 1e-5, atol
+    1e-6 of ``spmm(impl="xla")``; GCN and SAGE [128, 128, 32] and GAT
+    [128, 32, 32] (2 heads): step 1's loss (rtol 1e-4) and gradients
+    (GRAD_TOL) the single-device step's; each distributed call's time
+    beside the single-device call's; kernel 3, the segment sum and the
+    row gather against their plain versions at an 8-way partition's shard
+    shapes (not counted); ``dryrun_multichip(device_count())``;
+22. the script's time, one JSON line of the kernels (launch counts of
+   phases 3-21, each path counted from 0; phase 2's errors, both times,
    bounds and library calls),
    then the last line ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
@@ -2457,6 +2473,331 @@ def phase_entry(device):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ------------------------------------------------------ phase 21: parallel
+PARALLEL_DIMS = {"gcn": [F_IN, F_HID, F_OUT], "sage": [F_IN, F_HID, F_OUT],
+                 "gat": [F_IN, 32, 32]}
+SHARD_WAYS = 8  # the shard shapes the kernels are held at (n_loc 8,200)
+
+
+def parallel_rank(kind=None) -> dict:
+    """One rank of phase 21 (one NCCL rank a card): every distributed call
+    of ``mini_tpu_torch.parallel`` at full width on the rmat16 graph,
+    held against the oracles and the single-device port on the same card,
+    its launches counted (the checked call of each, not the references or
+    the timing runs) and its time beside the single-device call's.  Rank 0
+    returns its lines, times and launch counts.  ``kind="cpu"`` runs it on
+    gloo ranks, to rehearse it on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from mini_tpu_torch.algorithms import (
+        bfs, bfs_cpu, cc_cpu, coloring, connected_components, kcore,
+        kcore_cpu_true, lspar, lspar_cpu, pagerank, sssp, sssp_cpu,
+        validate_coloring,
+    )
+    from mini_tpu_torch.graph import GraphSlice, rmat
+    from mini_tpu_torch.models.gat import gat_init, gat_train_step
+    from mini_tpu_torch.models.gcn import gcn_init, gcn_train_step, \
+        gcn_normalize
+    from mini_tpu_torch.models.sage import sage_init, sage_train_step
+    from mini_tpu_torch.ops.spmm import spmm
+    from mini_tpu_torch.parallel import (
+        build_halo_plan, dist_bfs, dist_gat_train, dist_lspar,
+        dist_sage_train, dist_sssp, make_dist_bfs, make_dist_spmm,
+        make_halo_spmm, make_mesh, partition_graph, shard_to_mesh,
+    )
+    from mini_tpu_torch.parallel.distributed import (
+        all_gather, dist_cc, dist_coloring, dist_kcore, dist_pagerank,
+        mesh_device,
+    )
+    from mini_tpu_torch.parallel.gcn import (
+        dist_gcn_train_step_fn, gcn_norm_arrays,
+    )
+    from mini_tpu_torch.utils.timing import time_fn
+
+    assert dist.get_backend() == ("gloo" if kind == "cpu" else "nccl")
+    D = dist.get_world_size()
+    hg = rmat(SCALE, edge_factor=16, seed=0, undirected=True, weighted=True)
+    mesh = make_mesh(D, device=kind)
+    device = mesh_device(mesh)
+    pg = partition_graph(hg, D)
+    shards = shard_to_mesh(pg, mesh)
+    plan = build_halo_plan(pg)
+    gs = GraphSlice.from_host(hg, device=device)
+    hub = int(np.argmax(hg.out_degrees))
+    s, n = shards.shard, hg.n
+    lines, times = [], []
+    total = {name: 0 for name in KERNELS}
+
+    def counted(fn):
+        """``fn()``, its launches added to this path's counts."""
+        before = {k: getattr(m, a) for k, (m, a) in counters().items()}
+        out = fn()
+        for k, (m, a) in counters().items():
+            total[k] += getattr(m, a) - before[k]
+        return out
+
+    def full(t):  # every rank's block, in shard order, on the host
+        return all_gather(t.contiguous(), None).cpu().numpy()
+
+    def timing(name, dist_fn, single_fn):  # min of 3 after 1, CUDA events
+        times.append((name,) + tuple(
+            time_fn(f, warmup=1, repeat=3, device=device).min_s * 1e3
+            for f in (dist_fn, single_fn)))
+
+    plans = (("all-gather", None), ("halo", plan))
+    # traversals, against the oracles and the single-device port
+    for label, pl in plans:
+        labels, preds = counted(lambda: dist_bfs(pg, shards, hub, mesh,
+                                                 plan=pl))
+        labels, preds = full(labels)[:n], full(preds)[:n]
+        np.testing.assert_array_equal(labels, bfs_cpu(hg, hub))
+        np.testing.assert_array_equal(preds, host_min_parent(hg, labels))
+    lines.append(f"dist_bfs from the hub {hub} (all-gather and halo): labels "
+                 f"bitwise bfs_cpu, preds the min-id parent")
+    want_d = sssp_cpu(hg, hub)[0]
+    for label, pl in plans:
+        got = full(counted(lambda: dist_sssp(pg, shards, hub, mesh,
+                                             plan=pl)))[:n]
+        np.testing.assert_array_equal(got, want_d)
+    want_cc = cc_cpu(hg)
+    for label, pl in plans:
+        got, _ = counted(lambda: dist_cc(pg, shards, mesh, plan=pl))
+        np.testing.assert_array_equal(full(got)[:n], want_cc)
+    want_k = kcore_cpu_true(hg)[0]
+    for label, pl in plans:
+        got, it = counted(lambda: dist_kcore(pg, shards, mesh, plan=pl))
+        np.testing.assert_array_equal(full(got)[:n], want_k)
+    single_col = coloring(gs, seed=0)
+    for label, pl in plans:
+        got, it = counted(lambda: dist_coloring(pg, shards, mesh, seed=0,
+                                                plan=pl))
+        got = full(got)
+        np.testing.assert_array_equal(got[:n],
+                                      single_col.colors.cpu().numpy()[:n])
+        assert validate_coloring(got, hg) and it == single_col.num_iterations
+    rng = np.random.RandomState(0)
+    a_, b_ = rng.randint(1, 999983), rng.randint(0, 999983)
+    hashs = ((b_ + a_ * np.arange(pg.n_pad, dtype=np.int64)) % 999983
+             ).astype(np.int32)
+    (_, want_cnt) = lspar_cpu(hg, hashs, 0.5)
+    for label, pl in plans:
+        _, _, cnt = counted(lambda: dist_lspar(pg, shards, mesh, plan=pl))
+        assert cnt == want_cnt, (cnt, want_cnt)
+    single_pr = pagerank(gs, variant="standard").ranks.cpu().numpy()[:n]
+    for label, pl in plans:
+        got, it = counted(lambda: dist_pagerank(pg, shards, mesh, plan=pl))
+        np.testing.assert_allclose(full(got)[:n], single_pr, rtol=1e-3,
+                                   atol=1e-7)
+    lines.append("dist_sssp bitwise sssp_cpu, dist_cc cc_cpu, dist_kcore "
+                 "kcore_cpu_true, dist_coloring the single-device coloring "
+                 "(the same salts, proper, the same rounds), dist_lspar's "
+                 f"count lspar_cpu's ({want_cnt}), dist_pagerank within "
+                 "rtol 1e-3 of pagerank; each all-gather and halo")
+
+    # SpMM at F=128 against spmm(impl="xla")
+    x = torch.from_numpy(np.random.RandomState(1).rand(
+        pg.n_pad, F_IN).astype(np.float32)).to(device)
+    xs = x.view(D, pg.n_loc, F_IN)[s: s + 1]
+    x_gs = torch.zeros(gs.n_pad, F_IN, device=device)
+    x_gs[:n] = x[:n]
+    want = spmm(gs, x_gs, impl="xla").cpu().numpy()[:n]
+    calls = {"dist_spmm": make_dist_spmm(pg, mesh),
+             "halo_spmm": make_halo_spmm(pg, plan, mesh),
+             "halo_spmm overlap": make_halo_spmm(pg, plan, mesh,
+                                                 overlap=True)}
+    for name, call in calls.items():
+        with torch.no_grad():
+            got = counted(lambda: call(shards, xs))
+        np.testing.assert_allclose(full(got).reshape(pg.n_pad, F_IN)[:n],
+                                   want, rtol=1e-5, atol=1e-6)
+    lines.append("dist_spmm and halo_spmm (overlap off and on) at F=128 "
+                 "within rtol 1e-5, atol 1e-6 of spmm(impl='xla')")
+
+    # training: step 1's loss and gradients against the single device
+    labels = torch.from_numpy(np.random.RandomState(2).randint(
+        0, N_CLASSES, pg.n_pad).astype(np.int32)).to(device)
+    mask = torch.arange(pg.n_pad, device=device) < n
+    lab1 = labels.view(D, -1)[s: s + 1]
+    msk1 = mask.view(D, -1)[s: s + 1]
+    lab_gs = torch.zeros(gs.n_pad, dtype=torch.int32, device=device)
+    lab_gs[:n] = labels[:n]
+    msk_gs = torch.arange(gs.n_pad, device=device) < n
+    norm = gcn_normalize(gs)
+    inv_sqrt, self_c = gcn_norm_arrays(pg, device=device)
+    self_c = self_c[s: s + 1]
+    init = {"gcn": gcn_init, "sage": sage_init,
+            "gat": lambda gen, d, device: gat_init(gen, d, heads=2,
+                                                   device=device)}
+    single_step = {
+        "gcn": lambda p, o: gcn_train_step(p, o, gs, norm, x_gs,
+                                           (lab_gs, msk_gs), 1.0),
+        "sage": lambda p, o: sage_train_step(p, o, gs, x_gs,
+                                             (lab_gs, msk_gs), 1.0),
+        "gat": lambda p, o: gat_train_step(p, o, gs, x_gs,
+                                           (lab_gs, msk_gs), 1.0),
+    }
+    gcn_step = dist_gcn_train_step_fn(pg, mesh, lr=1.0)
+    # SAGE's and GAT's step returns params only: from zero momentum the
+    # step is p - lr g, and a large lr keeps g's float32 digits in p0 - p1
+    lr = 1e4
+    dist_train = {
+        "sage": lambda p: dist_sage_train(pg, shards, mesh, p, xs, lab1,
+                                          msk1, steps=1, lr=lr),
+        "gat": lambda p: dist_gat_train(pg, shards, mesh, p, xs, lab1,
+                                        msk1, steps=1, lr=lr),
+    }
+    for model, dims in PARALLEL_DIMS.items():
+        p0 = init[model](torch.Generator().manual_seed(3), dims,
+                         device=device)
+        zeros = [{k: torch.zeros_like(v) for k, v in p.items()} for p in p0]
+        _, ref_grads, ref_loss = single_step[model](p0, zeros)
+        if model == "gcn":
+            _, grads, loss = counted(lambda: gcn_step(
+                shards, p0, zeros, xs, lab1, msk1, inv_sqrt, self_c))
+            loss = float(loss)
+        else:
+            p1, losses = counted(lambda: dist_train[model](p0))
+            loss = losses[0]
+            grads = [{k: (p[k] - q[k]) / lr for k in p}
+                     for p, q in zip(p0, p1)]
+        np.testing.assert_allclose(loss, float(ref_loss), rtol=1e-4)
+        err = grads_close(grads, ref_grads, GRAD_TOL)
+        lines.append(f"dist_{model}_train {dims}: step 1 loss {loss:.6f} "
+                     f"(single device {float(ref_loss):.6f}), gradients "
+                     f"within GRAD_TOL x max|ref| + 1e-7 (largest error "
+                     f"over max|ref| {err:.3g})")
+        # a step, its edge sums and their transposes already built (the
+        # shards keep them from the checked call)
+        timing(f"dist_{model}_train step", (lambda: gcn_step(
+            shards, p0, zeros, xs, lab1, msk1, inv_sqrt, self_c)) if model
+            == "gcn" else (lambda: dist_train[model](p0)),
+            lambda: single_step[model](p0, zeros))
+
+    # times: each distributed call beside the single-device call
+    bfs_call = make_dist_bfs(pg, mesh)
+    bfs_plan = make_dist_bfs(pg, mesh, plan=plan)
+    timing("dist_bfs (all-gather)", lambda: bfs_call(shards, hub),
+           lambda: bfs(gs, hub))
+    timing("dist_bfs (halo)", lambda: bfs_plan(shards, hub),
+           lambda: bfs(gs, hub))
+    timing("dist_sssp", lambda: dist_sssp(pg, shards, hub, mesh),
+           lambda: sssp(gs, hub, variant="bellman"))
+    timing("dist_pagerank", lambda: dist_pagerank(pg, shards, mesh),
+           lambda: pagerank(gs, variant="standard"))
+    timing("dist_cc", lambda: dist_cc(pg, shards, mesh),
+           lambda: connected_components(gs))
+    timing("dist_kcore", lambda: dist_kcore(pg, shards, mesh),
+           lambda: kcore(gs, variant="hindex"))
+    timing("dist_coloring", lambda: dist_coloring(pg, shards, mesh),
+           lambda: coloring(gs))
+    timing("dist_lspar", lambda: dist_lspar(pg, shards, mesh),
+           lambda: lspar(gs))
+    with torch.no_grad():
+        for name, call in calls.items():
+            timing(name, lambda: call(shards, xs), lambda: spmm(gs, x_gs))
+    return {"lines": lines, "times": times, "launches": total, "world": D}
+
+
+def check_shard_kernels(hg, device):
+    """Kernel 3, the segment sum and the row gather against their plain
+    versions at the shapes of one shard of an 8-way partition of ``hg``
+    (its largest), as ``parallel`` gives them: kernel 3 over the shard's
+    ``col_offsets`` (int32 min, max, sum and bor, float32 min and sum, the
+    pad edges holding the identity), the segment sum over the offsets
+    padded to the row tile at F=128, the row gather of ``[n_pad, 128]``
+    rows by the edges' sources and of 4-byte rows (a frontier)."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+    from mini_tpu_torch.ops.kernels import spmm_kernel as k4
+    from mini_tpu_torch.parallel import build_halo_plan, partition_graph
+    from mini_tpu_torch.parallel.distributed import EdgeSum
+    from mini_tpu_torch.ops.segment import identity_for
+
+    pg = partition_graph(hg, SHARD_WAYS)
+    s = int(np.argmax(pg.col_offsets[:, -1]))
+    m = int(pg.col_offsets[s, -1])
+    rng = np.random.RandomState(0)
+    off = torch.from_numpy(pg.col_offsets[s]).to(device)
+    dst = torch.from_numpy(pg.csc_dsts_local[s]).to(device)
+    real = torch.from_numpy(pg.edge_mask[s]).to(device)
+    for dtype, ops in ((torch.int32, ("min", "max", "sum", "bor")),
+                       (torch.float32, ("min", "sum"))):
+        raw = torch.from_numpy(rng.randint(-2**20, 2**20, pg.m_loc)).to(
+            device).to(dtype)
+        for op in ops:
+            ident = identity_for("sum" if op == "bor" else op, dtype)
+            vals = torch.where(real, raw, ident)
+            got = k1.segment_reduce(off, dst, vals, op)
+            want = k1.segment_reduce_plain(off, dst, vals, op)
+            if dtype == torch.int32 or op == "min":
+                assert torch.equal(got, want), (dtype, op)
+            else:
+                err = float((got - want).abs().max())
+                assert err <= SUM_TOL * float(want.abs().max()), err
+    es = EdgeSum(pg.csc_srcs[s, :m], pg.csc_dsts_local[s, :m], pg.n_loc,
+                 pg.n_pad, device)
+    table = torch.from_numpy(rng.randn(pg.n_pad, F_IN).astype(
+        np.float32)).to(device)
+    rows = kg.gather_rows(table, es.idx)
+    assert torch.equal(rows, kg.gather_rows_plain(table, es.idx))
+    vec = torch.from_numpy(rng.randint(0, 2, (pg.n_pad, 1)).astype(
+        np.int32)).to(device)
+    assert torch.equal(kg.gather_rows(vec, es.idx),
+                       kg.gather_rows_plain(vec, es.idx))
+    w = torch.zeros(rows.shape[0], device=device)
+    w[:m] = torch.from_numpy(pg.csc_weights[s, :m]).to(device)
+    msgs = rows * w[:, None]
+    got = k4.segment_sum(es.offsets, None, msgs)
+    want = k4.segment_sum_plain(es.offsets, None, msgs)
+    err = float((got - want).abs().max())
+    assert err <= SUM_TOL * float(want.abs().max()), err
+    for ways in (4, SHARD_WAYS):  # what a rank's halo moves (host counts)
+        pw = partition_graph(hg, ways)
+        plan = build_halo_plan(pw)
+        halo_edges = int(plan.halo_mask.sum())
+        log(f"# phase 21: halo plan at D={ways}: H={plan.halo_width}, a "
+            f"rank receives {ways * plan.halo_width} slab rows against the "
+            f"all-gather's {pw.n_pad}; {halo_edges} of {hg.m} edges "
+            f"({halo_edges / hg.m:.0%}) read a halo row")
+    log(f"# phase 21: the {SHARD_WAYS}-way shard {s} (n_loc {pg.n_loc}, "
+        f"{m} edges, rows padded to {es.offsets.shape[0] - 1}): kernel 3 "
+        f"bitwise (int32 min/max/sum/bor, f32 min) and within SUM_TOL (f32 "
+        f"sum); segment_sum within SUM_TOL at F={F_IN} (err {err:.3g}); "
+        f"gather_rows bitwise at 512- and 4-byte rows")
+
+
+def phase_parallel(hg, device):
+    """Phase 21: ``mini_tpu_torch.parallel`` over NCCL, one rank a card
+    (:func:`parallel_rank`), its launches added to this process's counts;
+    the kernels at 8-way shard shapes of ``hg`` (not counted); the dry
+    run."""
+    import torch
+
+    from mini_tpu_torch.entry import dryrun_multichip
+    from mini_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    res = run_ranks(parallel_rank, world, timeout_s=900)
+    for name, (mod, attr) in counters().items():
+        setattr(mod, attr, getattr(mod, attr) + res["launches"][name])
+    for line in res["lines"]:
+        log(f"# parallel ({world} NCCL rank{'s' if world > 1 else ''}): "
+            f"{line}")
+    for name, dm, sm in res["times"]:
+        log(f"# parallel time {name}: {dm:.3f} ms, single device {sm:.3f} "
+            f"ms, ratio {dm / sm:.2f} (min of 3, CUDA events)")
+    t1 = time.perf_counter()
+    with uncounted():
+        check_shard_kernels(hg, device)
+    dryrun_multichip(world)
+    log(f"# phase 21: parallel path {t1 - t0:.1f} s, dryrun_multichip("
+        f"{world}) passed; {time.perf_counter() - t0:.1f} s")
+
+
 # kernel -> (wrapper module, its launch counter, source, the TPU kernel)
 KERNELS = {
     "segment_reduce": ("segreduce_kernel", "launches",
@@ -2539,6 +2880,9 @@ def main(argv) -> None:
     if argv == ["--profile"]:  # the GAT step's profile alone, no result
         profile_gat(g, device)
         return
+    if argv == ["--parallel"]:  # phase 21 alone, no result
+        drive("parallel", phase_parallel, hg, device)
+        return
     t0 = time.perf_counter()
     hg_big = rmat(MEMORY_SCALE, edge_factor=16, seed=0, undirected=True,
                   weighted=True)
@@ -2580,6 +2924,7 @@ def main(argv) -> None:
     paths += [
         drive("arxiv", phase_arxiv, device),
         drive("entry", phase_entry, device),
+        drive("parallel", phase_parallel, hg, device),
     ]
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():

@@ -19,15 +19,21 @@ def sgd_momentum_step(
     opt_state: list[dict],
     loss_fn: Callable[[list[dict]], torch.Tensor],
     lr: float,
+    reduce_grads: Callable[[list], list] | None = None,
 ):
     """One step: the gradient of ``loss_fn`` at ``params`` by
     ``torch.autograd.grad``, then the momentum update.  Returns
-    ``(new_params, new_opt, loss)``; the inputs are left as they were."""
+    ``(new_params, new_opt, loss)``; the inputs are left as they were.
+    ``reduce_grads`` maps the gradients before the update (the
+    distributed steps sum them over the ranks)."""
     leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
               for p in params]
     loss = loss_fn(leaves)
     flat = [v for p in leaves for v in p.values()]
-    grads = iter(torch.autograd.grad(loss, flat))
+    grads = torch.autograd.grad(loss, flat)
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
+    grads = iter(grads)
     new_opt, new_params = [], []
     for p, m in zip(params, opt_state):
         mo = {k: 0.9 * m[k] + next(grads) for k in p}

@@ -29,7 +29,12 @@ assert {"mini_tpu_torch.ops.sort", "mini_tpu_torch.algorithms.kcore",
         "mini_tpu_torch.algorithms.lspar", "mini_tpu_torch.cli",
         "mini_tpu_torch.entry", "mini_tpu_torch.native",
         "mini_tpu_torch.graph.datasets", "mini_tpu_torch.utils.checkpoint",
-        "mini_tpu_torch.utils.profiling"} <= set(names), names
+        "mini_tpu_torch.utils.profiling", "mini_tpu_torch.parallel",
+        "mini_tpu_torch.parallel.partition",
+        "mini_tpu_torch.parallel.distributed",
+        "mini_tpu_torch.parallel.halo", "mini_tpu_torch.parallel.gcn",
+        "mini_tpu_torch.parallel.models",
+        "mini_tpu_torch.parallel.launch"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mini_tpu"))
 assert not leaked, leaked
@@ -41,6 +46,30 @@ def test_port_imports_no_jax():
     proc = subprocess.run(
         [sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True,
         text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+IMPORT_PARALLEL = """
+import sys
+import mini_tpu_torch.parallel
+import mini_tpu_torch.parallel.launch
+import mini_tpu_torch.entry
+from mini_tpu_torch.entry import dryrun_multichip
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "mini_tpu"))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_parallel_and_entry_import_no_jax():
+    """A fresh process that imports the multi-device layer and the entry
+    points (what every rank of ``run_ranks`` imports) loads no jax."""
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_PARALLEL], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")

@@ -360,3 +360,59 @@ def test_peeling_same_call_same_result(graphs):
     got = tsort.segment_argsort(torch.from_numpy(keys), torch.from_numpy(seg),
                                 True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# the multi-device layer: the five modules' public functions
+PARALLEL = [(m, n) for m, names in (
+    ("partition", ("partition_graph",)),
+    ("distributed", ("make_mesh", "make_mesh_2level", "shard_to_mesh",
+                     "make_dist_bfs", "dist_bfs", "dist_sssp",
+                     "make_dist_spmm", "dist_spmm", "dist_pagerank",
+                     "dist_cc", "dist_coloring", "dist_kcore",
+                     "dist_lspar")),
+    ("halo", ("build_halo_plan", "exchange_slabs", "make_halo_spmm",
+              "halo_spmm")),
+    ("gcn", ("gcn_norm_arrays", "dist_gcn_train_step_fn",
+             "dist_gcn_train")),
+    ("models", ("dist_sage_forward", "dist_gat_forward", "dist_sage_train",
+                "dist_gat_train")),
+) for n in names]
+
+
+@pytest.mark.parametrize("module,name", PARALLEL,
+                         ids=[n for _, n in PARALLEL])
+def test_parallel_parameters_are_the_jax_package_s(module, name):
+    """JAX's parameters in JAX's order with JAX's defaults; what the port
+    adds is keyword-only and last: ``device`` where the function places
+    data on a device, ``mesh`` for ``exchange_slabs`` (JAX reads the mesh
+    from the ``shard_map`` around it)."""
+    import importlib
+
+    jfn = getattr(importlib.import_module(f"mini_tpu.parallel.{module}"),
+                  name)
+    tfn = getattr(importlib.import_module(
+        f"mini_tpu_torch.parallel.{module}"), name)
+    want = inspect.signature(jfn).parameters
+    got = inspect.signature(tfn).parameters
+    extra = [n for n in got if n not in want]
+    assert list(got)[: len(want)] == list(want)
+    assert extra in ([], ["device"], ["mesh"]), extra
+    for n in extra:
+        assert got[n].kind == inspect.Parameter.KEYWORD_ONLY, n
+    for n in want:
+        assert got[n].default == want[n].default, n
+        assert got[n].kind == want[n].kind, n
+    if module == "distributed" and name.startswith("make_mesh"):
+        assert extra == ["device"]
+
+
+def test_parallel_exports_the_jax_package_s_names():
+    import mini_tpu.parallel as jpar
+    import mini_tpu_torch.parallel as tpar
+
+    def names(mod):
+        return {n for n in vars(mod) if not n.startswith("_")
+                and not inspect.ismodule(getattr(mod, n))}
+
+    assert len(names(jpar)) == 19
+    assert names(tpar) == names(jpar)
