@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile    # the GAT step's profile alone
     python3 chip_smoke.py --kernels    # phases 1 and 2 alone
     python3 chip_smoke.py --parallel   # phases 1 and 21 alone
+    python3 chip_smoke.py --tp-profile # the GCN steps over the meshes
 
 Phases; any failure ends with a traceback and a non-zero exit:
 
@@ -103,10 +104,15 @@ Phases; any failure ends with a traceback and a non-zero exit:
     ``halo_spmm`` (overlap off and on) at F=128 within rtol 1e-5, atol
     1e-6 of ``spmm(impl="xla")``; GCN and SAGE [128, 128, 32] and GAT
     [128, 32, 32] (2 heads): step 1's loss (rtol 1e-4) and gradients
-    (GRAD_TOL) the single-device step's; each distributed call's time
-    beside the single-device call's; kernel 3, the segment sum and the
-    row gather against their plain versions at an 8-way partition's shard
-    shapes (not counted); ``dryrun_multichip(device_count())``;
+    (GRAD_TOL) the single-device step's; the GCN step over the 2-D
+    (graph, feat) mesh (``parallel/tp.py``: 1 x 1 at one card, 2 x 2 at
+    four): step 1's loss (rtol 1e-4), momentum and params (GRAD_TOL) the
+    single-device step's, its launches apart; each distributed call's
+    time beside the single-device call's; kernel 3, the segment sum and
+    the row gather against their plain versions at an 8-way partition's
+    shard shapes, the last two also at the 2-D step's 64- and 16-column
+    blocks (not counted); ``dryrun_multichip(device_count())``, both
+    parts;
 22. the script's time, one JSON line of the kernels (launch counts of
    phases 3-21, each path counted from 0; phase 2's errors, both times,
    bounds and library calls),
@@ -119,6 +125,7 @@ With no CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -1385,14 +1392,49 @@ PROFILE_PARTS = (
 )
 
 
-def profile_gat(g, device, steps: int = 3) -> None:
-    """The banded GAT train step (float32 and bf16 messages) under
-    ``torch.profiler``: device busy time per step, its kernel span and
-    idle share, and the busy time by part (PROFILE_PARTS, the rest as
-    elementwise and other)."""
+def profile_step(step, device, steps: int = 3, parts=PROFILE_PARTS):
+    """``steps`` calls of ``step`` (after 2 unprofiled) under
+    ``torch.profiler``: a log line's text, the device busy time per step,
+    its kernel span and idle share, and the busy time by part (``parts``,
+    the rest as elementwise and other); None when the profiler saw no
+    device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(device)
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / steps
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3 / steps
+    split = {p: [0.0, 0] for p, _ in parts}
+    split["elementwise and other"] = [0.0, 0]
+    for e in kern:
+        part = next((p for p, keys in parts
+                     if any(k in e.name for k in keys)),
+                    "elementwise and other")
+        split[part][0] += e.time_range.elapsed_us() / 1e3 / steps
+        split[part][1] += 1
+    return (f"busy {busy:.3f} ms/step in a {span:.3f} ms kernel span, idle "
+            f"share {1 - busy / span:.3f}, {len(kern) / steps:g} device "
+            f"kernels and copies a step; " + "; ".join(
+                f"{p} {t:.3f} ms ({100 * t / busy:.1f}%, {n / steps:g} "
+                f"kernels)" for p, (t, n) in split.items()))
+
+
+def profile_gat(g, device, steps: int = 3) -> None:
+    """The banded GAT train step (float32 and bf16 messages) under
+    ``torch.profiler`` (:func:`profile_step`)."""
+    import torch
 
     from mini_tpu_torch.models.gat import (
         gat_init, gat_init_opt, gat_train_step,
@@ -1411,37 +1453,10 @@ def profile_gat(g, device, steps: int = 3) -> None:
             gat_train_step(params, opt, g, x, (labels, mask), 1e-2,
                            message_dtype=mdt)
 
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize(device)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                step()
-            torch.cuda.synchronize(device)
-        kern = [e for e in prof.events()
-                if e.device_type == DeviceType.CUDA]
         name = "f32" if mdt is None else "bf16"
-        if not kern:
-            log(f"# gat profile {name}: the profiler saw no device events")
-            continue
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / steps
-        span = (max(e.time_range.end for e in kern)
-                - min(e.time_range.start for e in kern)) / 1e3 / steps
-        parts = {p: [0.0, 0] for p, _ in PROFILE_PARTS}
-        parts["elementwise and other"] = [0.0, 0]
-        for e in kern:
-            part = next((p for p, keys in PROFILE_PARTS
-                         if any(k in e.name for k in keys)),
-                        "elementwise and other")
-            parts[part][0] += e.time_range.elapsed_us() / 1e3 / steps
-            parts[part][1] += 1
-        log(f"# gat profile rmat{SCALE} {name} (banded, {steps} steps): busy "
-            f"{busy:.3f} ms/step in a {span:.3f} ms kernel span, idle share "
-            f"{1 - busy / span:.3f}, {len(kern) / steps:g} device kernels and "
-            f"copies a step; " + "; ".join(
-                f"{p} {t:.3f} ms ({100 * t / busy:.1f}%, "
-                f"{n / steps:g} kernels)" for p, (t, n) in parts.items()))
+        text = profile_step(step, device, steps)
+        log(f"# gat profile rmat{SCALE} {name} (banded, {steps} steps): "
+            + (text or "the profiler saw no device events"))
 
 
 def phase_gat(hg, g, hg_big, device):
@@ -2513,6 +2528,10 @@ def parallel_rank(kind=None) -> dict:
     from mini_tpu_torch.parallel.gcn import (
         dist_gcn_train_step_fn, gcn_norm_arrays,
     )
+    from mini_tpu_torch.parallel.tp import (
+        gather_gcn_params_2d, gcn_train_step_2d, make_mesh_2d,
+        shard_gcn_params_2d,
+    )
     from mini_tpu_torch.utils.timing import time_fn
 
     assert dist.get_backend() == ("gloo" if kind == "cpu" else "nccl")
@@ -2529,12 +2548,15 @@ def parallel_rank(kind=None) -> dict:
     lines, times = [], []
     total = {name: 0 for name in KERNELS}
 
-    def counted(fn):
-        """``fn()``, its launches added to this path's counts."""
+    def counted(fn, into=None):
+        """``fn()``, its launches added to this path's counts (and to
+        ``into``)."""
         before = {k: getattr(m, a) for k, (m, a) in counters().items()}
         out = fn()
         for k, (m, a) in counters().items():
             total[k] += getattr(m, a) - before[k]
+            if into is not None:
+                into[k] = getattr(m, a) - before[k]
         return out
 
     def full(t):  # every rank's block, in shard order, on the host
@@ -2674,6 +2696,45 @@ def parallel_rank(kind=None) -> dict:
             == "gcn" else (lambda: dist_train[model](p0)),
             lambda: single_step[model](p0, zeros))
 
+    # the GCN step over the 2-D (graph, feat) mesh (JAX's dry-run part 2):
+    # 1 x 1 at one card, 2 x 2 at four, on the 1-D step's inputs
+    mesh2d = make_mesh_2d(D, device=kind)
+    gp, fp = mesh2d.size(0), mesh2d.size(1)
+    pg2 = pg if gp == D else partition_graph(hg, gp)
+    shards2d = shard_to_mesh(pg2, mesh2d, axis="graph")
+
+    def rows2d(a):  # this rank's [1, n_loc, ...] rows of the first n
+        out = a.new_zeros((pg2.n_pad,) + tuple(a.shape[1:]))
+        out[:n] = a[:n]
+        return out.view((gp, pg2.n_loc) + tuple(a.shape[1:]))[
+            shards2d.shard: shards2d.shard + 1]
+
+    x2, batch2 = rows2d(x), (rows2d(labels), rows2d(mask))
+    dims = PARALLEL_DIMS["gcn"]
+    p0 = gcn_init(torch.Generator().manual_seed(3), dims, device=device)
+    zeros = [{k: torch.zeros_like(v) for k, v in p.items()} for p in p0]
+    ref_p, ref_m, ref_loss = single_step["gcn"](p0, zeros)
+    blocks = shard_gcn_params_2d(p0, mesh2d)
+    zero_blocks = shard_gcn_params_2d(zeros, mesh2d)
+
+    def step2d():
+        return gcn_train_step_2d(blocks, zero_blocks, pg2, shards2d, x2,
+                                 batch2, 1.0, mesh=mesh2d)
+
+    tp_launches = {}
+    p1, m1, loss = counted(step2d, tp_launches)
+    np.testing.assert_allclose(float(loss), float(ref_loss), rtol=1e-4)
+    err_m = grads_close(gather_gcn_params_2d(m1, mesh2d), ref_m, GRAD_TOL)
+    err_p = grads_close(gather_gcn_params_2d(p1, mesh2d), ref_p, GRAD_TOL)
+    lines.append(f"gcn_train_step_2d {dims} on a {gp} x {fp} (graph, feat) "
+                 f"mesh (column blocks {[d // fp for d in dims[1:]]}): step "
+                 f"1 loss {float(loss):.6f} (single device "
+                 f"{float(ref_loss):.6f}), momentum and params within "
+                 f"GRAD_TOL x max|ref| + 1e-7 (largest error over max|ref| "
+                 f"{err_m:.3g}, {err_p:.3g})")
+    timing(f"gcn_train_step_2d ({gp}x{fp} mesh)", step2d,
+           lambda: single_step["gcn"](p0, zeros))
+
     # times: each distributed call beside the single-device call
     bfs_call = make_dist_bfs(pg, mesh)
     bfs_plan = make_dist_bfs(pg, mesh, plan=plan)
@@ -2696,7 +2757,8 @@ def parallel_rank(kind=None) -> dict:
     with torch.no_grad():
         for name, call in calls.items():
             timing(name, lambda: call(shards, xs), lambda: spmm(gs, x_gs))
-    return {"lines": lines, "times": times, "launches": total, "world": D}
+    return {"lines": lines, "times": times, "launches": total, "world": D,
+            "tp_launches": tp_launches}
 
 
 def check_shard_kernels(hg, device):
@@ -2705,8 +2767,10 @@ def check_shard_kernels(hg, device):
     (its largest), as ``parallel`` gives them: kernel 3 over the shard's
     ``col_offsets`` (int32 min, max, sum and bor, float32 min and sum, the
     pad edges holding the identity), the segment sum over the offsets
-    padded to the row tile at F=128, the row gather of ``[n_pad, 128]``
-    rows by the edges' sources and of 4-byte rows (a frontier)."""
+    padded to the row tile and the row gather of ``[n_pad, F]`` rows by
+    the edges' sources at F=128 and at the 2-D step's column blocks with
+    ``feat`` 2 (F=64, 16), and the row gather of 4-byte rows (a
+    frontier)."""
     import torch
 
     from mini_tpu_torch.ops.kernels import gather_rows as kg
@@ -2741,19 +2805,24 @@ def check_shard_kernels(hg, device):
                  pg.n_pad, device)
     table = torch.from_numpy(rng.randn(pg.n_pad, F_IN).astype(
         np.float32)).to(device)
-    rows = kg.gather_rows(table, es.idx)
-    assert torch.equal(rows, kg.gather_rows_plain(table, es.idx))
     vec = torch.from_numpy(rng.randint(0, 2, (pg.n_pad, 1)).astype(
         np.int32)).to(device)
     assert torch.equal(kg.gather_rows(vec, es.idx),
                        kg.gather_rows_plain(vec, es.idx))
-    w = torch.zeros(rows.shape[0], device=device)
+    w = torch.zeros(es.idx.shape[0], device=device)
     w[:m] = torch.from_numpy(pg.csc_weights[s, :m]).to(device)
-    msgs = rows * w[:, None]
-    got = k4.segment_sum(es.offsets, None, msgs)
-    want = k4.segment_sum_plain(es.offsets, None, msgs)
-    err = float((got - want).abs().max())
-    assert err <= SUM_TOL * float(want.abs().max()), err
+    errs = {}
+    for F in (F_IN, F_HID // 2, F_OUT // 2):  # 1-D, then the 2-D step's
+        # column blocks at feat_par 2 (64- and 16-column tables)
+        tab = table if F == F_IN else torch.from_numpy(rng.randn(
+            pg.n_pad, F).astype(np.float32)).to(device)
+        rows = kg.gather_rows(tab, es.idx)
+        assert torch.equal(rows, kg.gather_rows_plain(tab, es.idx)), F
+        msgs = rows * w[:, None]
+        got = k4.segment_sum(es.offsets, None, msgs)
+        want = k4.segment_sum_plain(es.offsets, None, msgs)
+        errs[F] = float((got - want).abs().max())
+        assert errs[F] <= SUM_TOL * float(want.abs().max()), (F, errs[F])
     for ways in (4, SHARD_WAYS):  # what a rank's halo moves (host counts)
         pw = partition_graph(hg, ways)
         plan = build_halo_plan(pw)
@@ -2765,8 +2834,11 @@ def check_shard_kernels(hg, device):
     log(f"# phase 21: the {SHARD_WAYS}-way shard {s} (n_loc {pg.n_loc}, "
         f"{m} edges, rows padded to {es.offsets.shape[0] - 1}): kernel 3 "
         f"bitwise (int32 min/max/sum/bor, f32 min) and within SUM_TOL (f32 "
-        f"sum); segment_sum within SUM_TOL at F={F_IN} (err {err:.3g}); "
-        f"gather_rows bitwise at 512- and 4-byte rows")
+        f"sum); segment_sum within SUM_TOL at F={F_IN} and the 2-D step's "
+        f"column blocks F={F_HID // 2}, {F_OUT // 2} (errs "
+        f"{', '.join(f'{v:.3g}' for v in errs.values())}); gather_rows "
+        f"bitwise at {F_IN * 4}-, {F_HID * 2}-, {F_OUT * 2}- and 4-byte "
+        f"rows")
 
 
 def phase_parallel(hg, device):
@@ -2790,12 +2862,93 @@ def phase_parallel(hg, device):
     for name, dm, sm in res["times"]:
         log(f"# parallel time {name}: {dm:.3f} ms, single device {sm:.3f} "
             f"ms, ratio {dm / sm:.2f} (min of 3, CUDA events)")
+    log(f"# launches on parallel gcn_train_step_2d (rank 0): "
+        f"{json.dumps(res['tp_launches'])}")
+    for name in ("segment_sum", "gather_rows"):
+        assert res["tp_launches"][name] > 0, f"the 2-D step ran no {name}"
     t1 = time.perf_counter()
     with uncounted():
         check_shard_kernels(hg, device)
     dryrun_multichip(world)
     log(f"# phase 21: parallel path {t1 - t0:.1f} s, dryrun_multichip("
         f"{world}) passed; {time.perf_counter() - t0:.1f} s")
+
+
+def tp_profile_rank(kind=None) -> list:
+    """The GCN step [128, 128, 32] on phase 21's rmat16 inputs, one NCCL
+    rank a card: the 1-D ``dist_gcn_train`` step, then the 2-D step on the
+    D x 1, the default (``feat`` 2 when D is even) and the 1 x D meshes,
+    each timed (min of 5 after 1, CUDA events) and profiled
+    (:func:`profile_step`, collectives apart: an NCCL kernel's time holds
+    its wait for the other ranks).  Rank 0 returns its log lines.
+    ``kind="cpu"`` runs it on gloo ranks, to rehearse it on the CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from mini_tpu_torch.graph import rmat
+    from mini_tpu_torch.models.gcn import gcn_init
+    from mini_tpu_torch.parallel import make_mesh, partition_graph, \
+        shard_to_mesh
+    from mini_tpu_torch.parallel.distributed import make_mesh_2level, \
+        mesh_device
+    from mini_tpu_torch.parallel.gcn import dist_gcn_train_step_fn, \
+        gcn_norm_arrays
+    from mini_tpu_torch.parallel.tp import AXES, feat_par_for, \
+        gcn_train_step_2d, shard_gcn_params_2d
+    from mini_tpu_torch.utils.timing import time_fn
+
+    D = dist.get_world_size()
+    hg = rmat(SCALE, edge_factor=16, seed=0, undirected=True, weighted=True)
+    mesh = make_mesh(D, device=kind)
+    device = mesh_device(mesh)
+    n = hg.n
+    x = torch.from_numpy(np.random.RandomState(1).rand(n, F_IN).astype(
+        np.float32)).to(device)
+    labels = torch.from_numpy(np.random.RandomState(2).randint(
+        0, N_CLASSES, n).astype(np.int32)).to(device)
+    p0 = gcn_init(torch.Generator().manual_seed(3), PARALLEL_DIMS["gcn"],
+                  device=device)
+    zeros = [{k: torch.zeros_like(v) for k, v in p.items()} for p in p0]
+    pgs = {}
+
+    def blocks(pg, shard):  # a shard's rows of x, labels and the mask
+        def rows(a):
+            out = a.new_zeros((pg.n_pad,) + tuple(a.shape[1:]))
+            out[:n] = a
+            return out.view((pg.num_shards, pg.n_loc) + tuple(
+                a.shape[1:]))[shard: shard + 1]
+        return rows(x), rows(labels), rows(torch.ones_like(labels,
+                                                           dtype=torch.bool))
+
+    pg = pgs[D] = partition_graph(hg, D)
+    shards = shard_to_mesh(pg, mesh)
+    inv_sqrt, self_c = gcn_norm_arrays(pg, device=device)
+    one_d = dist_gcn_train_step_fn(pg, mesh, lr=1.0)
+    xs, lab, msk = blocks(pg, shards.shard)
+    steps = {"dist_gcn_train (1-D)": lambda: one_d(
+        shards, p0, zeros, xs, lab, msk, inv_sqrt,
+        self_c[shards.shard: shards.shard + 1])}
+    fp = feat_par_for(D)
+    for gp, fp in dict.fromkeys([(D, 1), (D // fp, fp), (1, D)]):
+        if any(d % fp for d in PARALLEL_DIMS["gcn"][1:]):
+            continue  # the columns do not split into fp blocks
+        m2 = make_mesh_2level(gp, fp, axes=AXES, device=kind)
+        pg2 = pgs.setdefault(gp, pg if gp == D else partition_graph(hg, gp))
+        sh2 = shard_to_mesh(pg2, m2, axis="graph")
+        x2, lab2, msk2 = blocks(pg2, sh2.shard)
+        steps[f"gcn_train_step_2d ({gp}x{fp})"] = functools.partial(
+            gcn_train_step_2d, shard_gcn_params_2d(p0, m2),
+            shard_gcn_params_2d(zeros, m2), pg2, sh2, x2, (lab2, msk2), 1.0,
+            mesh=m2)
+    parts = PROFILE_PARTS + (("collectives (NCCL, waits included)",
+                              ("nccl",)),)
+    lines = []
+    for name, step in steps.items():
+        ms = time_fn(step, warmup=1, repeat=5, device=device).min_s * 1e3
+        text = profile_step(step, device, parts=parts)
+        lines.append(f"{name} at {D} rank(s): {ms:.3f} ms (min of 5, CUDA "
+                     f"events); rank 0 " + (text or "no device events"))
+    return lines
 
 
 # kernel -> (wrapper module, its launch counter, source, the TPU kernel)
@@ -2882,6 +3035,13 @@ def main(argv) -> None:
         return
     if argv == ["--parallel"]:  # phase 21 alone, no result
         drive("parallel", phase_parallel, hg, device)
+        return
+    if argv == ["--tp-profile"]:  # the GCN steps' profiles, no result
+        from mini_tpu_torch.parallel.launch import run_ranks
+
+        for line in run_ranks(tp_profile_rank, torch.cuda.device_count(),
+                              timeout_s=900):
+            log(f"# tp profile {line}")
         return
     t0 = time.perf_counter()
     hg_big = rmat(MEMORY_SCALE, edge_factor=16, seed=0, undirected=True,

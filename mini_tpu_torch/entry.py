@@ -8,10 +8,10 @@ port.
     dryrun_multichip(torch.cuda.device_count())  # one NCCL rank a card
     dryrun_multichip(8, device="cpu")            # 8 gloo ranks
 
-The dry run ports part 1 of JAX's (the explicit ``shard_map`` programs);
-part 2, the GSPMD GCN step over a 2-D (graph, feat) mesh, has no one-call
-counterpart here (it would need DTensor sharding rules for the port's
-kernels, or an explicit tensor-parallel step) and is not ported.
+The dry run ports both parts of JAX's: the explicit ``shard_map``
+programs, and the GSPMD GCN step over a 2-D (graph, feat) mesh, written
+out here as an explicit graph- and tensor-parallel step
+(``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -63,9 +63,12 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     bitwise ``bfs_cpu``, SSSP bitwise ``sssp_cpu``, PageRank within rtol
     1e-3, CC, coloring (the same draws) and k-core (``hindex``) bitwise,
     L-Spar's count equal, the GAT and SAGE forwards finite, the GCN, GAT
-    and SAGE training losses falling and, at an even ``n_devices >= 4``,
-    the 2-level (dcn, ici) GCN's first loss within rtol 1e-5 of the flat
-    one.  Raises if any rank fails."""
+    and SAGE training losses falling, at an even ``n_devices >= 4`` the
+    2-level (dcn, ici) GCN's first loss within rtol 1e-5 of the flat one,
+    and (JAX's part 2) one GCN step over the (graph, feat) mesh, ``feat``
+    2 ranks when ``n_devices`` is even: its loss finite and, on gloo ranks,
+    the loss and the updated parameters those of the single-device step.
+    Raises if any rank fails."""
     import functools
 
     from mini_tpu_torch.parallel.launch import run_ranks
@@ -88,7 +91,8 @@ def _dryrun_rank(n_devices: int) -> None:
     )
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi
     from mini_tpu_torch.models.gat import gat_init
-    from mini_tpu_torch.models.gcn import gcn_init
+    from mini_tpu_torch.models.gcn import gcn_init, gcn_normalize, \
+        gcn_train_step
     from mini_tpu_torch.models.sage import sage_init
     from mini_tpu_torch.parallel import (
         build_halo_plan,
@@ -113,6 +117,12 @@ def _dryrun_rank(n_devices: int) -> None:
         make_mesh_2level,
     )
     from mini_tpu_torch.parallel.gcn import dist_gcn_train
+    from mini_tpu_torch.parallel.tp import (
+        gather_gcn_params_2d,
+        gcn_train_step_2d,
+        make_mesh_2d,
+        shard_gcn_params_2d,
+    )
 
     D = n_devices
     kind = "cpu" if dist.get_backend() == "gloo" else None  # else the card
@@ -205,3 +215,43 @@ def _dryrun_rank(n_devices: int) -> None:
             xs, lab1, msk1, steps=1, axis=axes, halo_plan=plan,
             overlap=True)
         np.testing.assert_allclose(losses2[0], losses[0], rtol=1e-5)
+
+    # 7. (JAX's part 2) one GCN train step over the 2-D (graph, feat) mesh:
+    # rows over graph, each w and its momentum by columns over feat
+    mesh2d = make_mesh_2d(D, device=kind)
+    gp = mesh2d.size(0)
+    pg2 = partition_graph(hg, gp)
+    shards2d = shard_to_mesh(pg2, mesh2d, axis="graph")
+    g2 = shards2d.shard
+    xf = np.zeros((pg2.n_pad, 16), np.float32)
+    xf[:n] = rng.rand(n, 16)
+    lab_f = np.zeros(pg2.n_pad, np.int32)
+    lab_f[:n] = rng.randint(0, 4, n)
+    msk_f = np.arange(pg2.n_pad) < n
+
+    def rows(a):  # this rank's [1, n_loc, ...] block
+        return torch.from_numpy(a.reshape((gp, pg2.n_loc) + a.shape[1:])[
+            g2: g2 + 1]).to(dev)
+
+    params = gcn_init(gen(0), [16, 32, 4], device=dev)
+    opt = [{k: torch.zeros_like(v) for k, v in p.items()} for p in params]
+    blocks, opt_blocks, loss2d = gcn_train_step_2d(
+        shard_gcn_params_2d(params, mesh2d),
+        shard_gcn_params_2d(opt, mesh2d), pg2, shards2d, rows(xf),
+        (rows(lab_f), rows(msk_f)), 0.05, mesh=mesh2d)
+    assert np.isfinite(float(loss2d)), float(loss2d)
+    if kind == "cpu":
+        x1 = torch.zeros(gs.n_pad, 16, device=dev)
+        x1[:n] = torch.from_numpy(xf[:n])
+        lab1 = torch.zeros(gs.n_pad, dtype=torch.int32, device=dev)
+        lab1[:n] = torch.from_numpy(lab_f[:n])
+        want, _, want_loss = gcn_train_step(
+            params, opt, gs, gcn_normalize(gs), x1,
+            (lab1, torch.arange(gs.n_pad, device=dev) < n), 0.05)
+        np.testing.assert_allclose(float(loss2d), float(want_loss),
+                                   rtol=1e-5)
+        for got, ref in zip(gather_gcn_params_2d(blocks, mesh2d), want):
+            for k in ref:
+                np.testing.assert_allclose(got[k].cpu().numpy(),
+                                           ref[k].cpu().numpy(), rtol=1e-4,
+                                           atol=1e-6)

@@ -22,6 +22,11 @@ from mini_tpu_torch.ops.operators import (  # noqa: F401
     compute,
 )
 from mini_tpu_torch.ops.spmm import sddmm, spmm  # noqa: F401
+from mini_tpu_torch.ops.permute import (  # noqa: F401
+    expand_to_edges,
+    apply_fixed_perm,
+    segmented_scan_reduce,
+)
 from mini_tpu_torch.ops.engine import (  # noqa: F401
     src_vals_to_csc,
     dst_vals_to_csc,

@@ -239,22 +239,34 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return x
 
 
+def all_gather_cols(x: torch.Tensor, group) -> torch.Tensor:
+    """The tiled all-gather of ``[n, b]`` blocks along axis 1: ``[n, D b]``,
+    the ranks' column blocks in rank order."""
+    k = dist.get_world_size(group)
+    return all_gather(x, group).view((k,) + tuple(x.shape)).transpose(
+        0, 1).reshape(x.shape[0], k * x.shape[1])
+
+
 class _AllGather(torch.autograd.Function):
-    """:func:`all_gather` with its transpose, the reduce-scatter (a sum
-    over the ranks of each rank's rows' cotangents), as its backward."""
+    """:func:`all_gather` (``dim=0``, the rows) or :func:`all_gather_cols`
+    (``dim=1``) with its transpose, the reduce-scatter (a sum over the
+    ranks of each rank's block's cotangents), as its backward."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather(x, group)
+    def forward(ctx, x, group, dim=0):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cols(x, group) if dim else all_gather(x, group)
 
     @staticmethod
     def backward(ctx, ct):
+        k = dist.get_world_size(ctx.group)
+        if ctx.dim:  # [n, k b] -> the ranks' blocks stacked, [k n, b]
+            n = ct.shape[0]
+            ct = ct.view(n, k, -1).transpose(0, 1).reshape(k * n, -1)
         ct = ct.contiguous()
-        out = ct.new_empty((ct.shape[0] // dist.get_world_size(ctx.group),)
-                           + tuple(ct.shape[1:]))
+        out = ct.new_empty((ct.shape[0] // k,) + tuple(ct.shape[1:]))
         _reduce_scatter_base(out, ct, group=ctx.group)
-        return out, None
+        return out, None, None
 
 
 # ------------------------------------------------- per-shard kernels

@@ -63,18 +63,30 @@ def masked_xent(logits, labels_loc, mask_loc, group):
     return nll.sum() / count.clamp(min=1).to(nll.dtype)[0]
 
 
+def sum_over(grads, group) -> list:
+    """The ranks' sums of ``grads`` over ``group``: one all-reduce of them
+    all, flattened, so every rank gets the same bits."""
+    if not grads:
+        return []
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
+    return [f.view(g.shape) for f, g in zip(
+        flat.split([g.numel() for g in grads]), grads)]
+
+
 def dist_sgd_step(params, opt, share_fn, lr, group):
     """One momentum-SGD step (``models/_sgd.py``) on the ranks' summed
     gradients of ``share_fn(params)``, each rank's share of the loss.
     Returns (params, opt, the global loss)."""
-    def summed(grads):  # one all-reduce of every gradient, flattened
-        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
-        return [f.view(g.shape) for f, g in zip(
-            flat.split([g.numel() for g in grads]), grads)]
-
-    params, opt, share = sgd_momentum_step(params, opt, share_fn, lr,
-                                           summed)
+    params, opt, share = sgd_momentum_step(
+        params, opt, share_fn, lr, lambda grads: sum_over(grads, group))
     return params, opt, all_reduce(share.reshape(1), group)[0]
+
+
+def shard_edge_weights(pg: PartitionedGraph, g: DeviceShards, inv_sqrt):
+    """The symmetric normalization of the shard's real edges in CSC order,
+    ``w_e = inv_sqrt[src] * inv_sqrt[dst]`` (``[m_real]``)."""
+    esrc, edst = g.csc_srcs[0, : g.m_real], g.csc_dsts_local[0, : g.m_real]
+    return inv_sqrt[esrc.long()] * inv_sqrt[edst.long() + g.shard * pg.n_loc]
 
 
 def dist_gcn_train_step_fn(
@@ -106,12 +118,7 @@ def dist_gcn_train_step_fn(
         if state:
             return state
         s = g.shard
-        esrc, edst, emask = g.csc_srcs[0], g.csc_dsts_local[0], g.edge_mask[0]
-        # symmetric normalization: w_e = inv_sqrt[src] * inv_sqrt[dst]
-        ew = torch.where(
-            emask, inv_sqrt[esrc.long()] * inv_sqrt[edst.long() + s * n_loc],
-            0.0)
-        state["ew"] = ew[: g.m_real]
+        state["ew"] = shard_edge_weights(pg, g, inv_sqrt)
         if halo_plan is None:
             state["es"] = csc_edge_sum(pg, g)
             return state

@@ -66,11 +66,30 @@ def _rank_main(rank, world, store, device_type, timeout_s, fn, results):
         results.put((rank, False, traceback.format_exc()))
 
 
+def _record(item, done: dict) -> None:
+    """One rank's report: its result into ``done``, or its traceback
+    raised."""
+    rank, ok, payload = item
+    if not ok:
+        raise RuntimeError(f"rank {rank} failed:\n{payload}")
+    done[rank] = payload
+
+
+def _drain(results, done: dict) -> None:
+    """Every report already on the queue into ``done``."""
+    while True:
+        try:
+            _record(results.get(timeout=0.1), done)
+        except queue.Empty:
+            return
+
+
 def run_ranks(fn, world: int, *, device=None, timeout_s: float = 600.0):
     """Run ``fn()`` on ``world`` ranks, one process a device (the card
     unless ``device="cpu"``), and return rank 0's result (tensors moved to
     the CPU).  Raises ``RuntimeError`` with the rank's traceback when one
-    fails, and ``TimeoutError`` when they do not all finish within
+    fails, naming the rank when one ends without a result (whatever its
+    exit code), and ``TimeoutError`` when they do not all finish within
     ``timeout_s`` seconds (every rank is killed either way)."""
     import torch.multiprocessing as mp
 
@@ -97,18 +116,21 @@ def run_ranks(fn, world: int, *, device=None, timeout_s: float = 600.0):
                         f"ranks {sorted(set(range(world)) - set(done))} did "
                         f"not finish within {timeout_s} s")
                 try:
-                    rank, ok, payload = results.get(timeout=min(left, 0.5))
+                    _record(results.get(timeout=min(left, 0.5)), done)
                 except queue.Empty:
+                    # a rank that has ended (with any code, 0 included:
+                    # sys.exit(0) skips the result) without a result is
+                    # dead; what it put on the queue before it ended is
+                    # read first
                     dead = [r for r, p in enumerate(procs)
-                            if r not in done and p.exitcode]
+                            if r not in done and p.exitcode is not None]
+                    if dead:
+                        _drain(results, done)
+                        dead = [r for r in dead if r not in done]
                     if dead:
                         raise RuntimeError(
                             f"rank {dead[0]} exited with code "
                             f"{procs[dead[0]].exitcode} and no result")
-                    continue
-                if not ok:
-                    raise RuntimeError(f"rank {rank} failed:\n{payload}")
-                done[rank] = payload
         finally:
             for p in procs:
                 p.join(timeout=max(0.0, min(5.0, deadline - time.monotonic()))

@@ -33,7 +33,7 @@ assert {"mini_tpu_torch.ops.sort", "mini_tpu_torch.algorithms.kcore",
         "mini_tpu_torch.parallel.partition",
         "mini_tpu_torch.parallel.distributed",
         "mini_tpu_torch.parallel.halo", "mini_tpu_torch.parallel.gcn",
-        "mini_tpu_torch.parallel.models",
+        "mini_tpu_torch.parallel.models", "mini_tpu_torch.parallel.tp",
         "mini_tpu_torch.parallel.launch"} <= set(names), names
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "mini_tpu"))
@@ -55,6 +55,7 @@ IMPORT_PARALLEL = """
 import sys
 import mini_tpu_torch.parallel
 import mini_tpu_torch.parallel.launch
+import mini_tpu_torch.parallel.tp
 import mini_tpu_torch.entry
 from mini_tpu_torch.entry import dryrun_multichip
 leaked = sorted(m for m in sys.modules

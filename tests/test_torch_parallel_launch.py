@@ -1,11 +1,13 @@
 """``parallel.launch.run_ranks`` and ``entry.dryrun_multichip`` on the
 CPU: the dry run on 8 ``gloo`` ranks (tests/test_distributed.py's
-``test_graft_entry_and_dryrun`` on the port); a rank that raises or hangs
-ends the run within its timeout, with every rank killed; no mesh puts a
+``test_graft_entry_and_dryrun`` on the port) and on 3; a rank that
+raises, hangs or exits without a result ends the run (at its timeout for a
+hang, at once otherwise), with every rank killed; no mesh puts a
 ``gloo`` group over the card, and without a card nothing starts unless
 the CPU is asked for."""
 
 import os
+import sys
 import time
 
 import pytest
@@ -26,6 +28,12 @@ def _raise_on_rank_1():
     if dist.get_rank() == 1:
         raise ValueError("rank 1 fails on purpose")
     dist.barrier()  # the others wait for rank 1 in a collective
+
+
+def _exit_0_on_rank_1():
+    if dist.get_rank() == 1:
+        sys.exit(0)  # ends the process with code 0 and no result
+    time.sleep(120)  # the others still at work (over NCCL, in a collective)
 
 
 def _hang_on_rank_1():
@@ -64,6 +72,16 @@ def test_run_ranks_raises_when_a_rank_raises():
     assert time.monotonic() - t0 < 60  # not the collective's timeout
 
 
+def test_run_ranks_names_a_rank_that_exits_0_without_a_result():
+    """A rank whose function calls ``sys.exit(0)`` ends with code 0 and no
+    result: ``run_ranks`` names it within seconds, not at its timeout."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError,
+                       match="rank 1 exited with code 0 and no result"):
+        run_ranks(_exit_0_on_rank_1, 3, device="cpu", timeout_s=120)
+    assert time.monotonic() - t0 < 40  # not the timeout: rank 1 is named
+
+
 def test_run_ranks_kills_a_hung_rank_at_its_timeout():
     t0 = time.monotonic()
     with pytest.raises(TimeoutError):
@@ -82,6 +100,14 @@ def test_run_ranks_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_dryrun_multichip_on_8_gloo_ranks():
+    """Part 2's step on a 4 x 2 (graph, feat) mesh."""
     from mini_tpu_torch.entry import dryrun_multichip
 
     dryrun_multichip(8, device="cpu")
+
+
+def test_dryrun_multichip_on_3_gloo_ranks():
+    """An odd count: no 2-level mesh, part 2's step on a 3 x 1 mesh."""
+    from mini_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(3, device="cpu")

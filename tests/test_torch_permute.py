@@ -1,8 +1,11 @@
 """Port parity: ``apply_fixed_perm`` (the permutation kernel's plain
 version on the CPU) against ``mini_tpu.ops.permute.apply_fixed_perm`` and
 against the Benes-butterfly oracle of ``scratch/probe_butterfly.py``; the
-banded permutes and the composite pull-to-push rank against JAX's; and
-the composite rank's cache against graph eviction."""
+banded permutes and the composite pull-to-push rank against JAX's; the
+composite rank's cache against graph eviction; and ``expand_to_edges``
+and ``segmented_scan_reduce`` against JAX's on tests/test_engine.py's
+cases (bitwise but for the float32 sum, a sum in another order: rtol
+1e-5, that file's tolerance)."""
 
 import jax
 import jax.numpy as jnp
@@ -13,10 +16,16 @@ import torch
 import mini_tpu.graph as jg
 from mini_tpu.graph import banded as jbanded
 from mini_tpu.ops.permute import apply_fixed_perm as j_apply_fixed_perm
+from mini_tpu.ops.permute import expand_to_edges as j_expand
+from mini_tpu.ops.permute import segmented_scan_reduce as j_scan
 import mini_tpu_torch.graph as tg
 from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.ops.kernels import permute_kernel as kp
-from mini_tpu_torch.ops.permute import apply_fixed_perm
+from mini_tpu_torch.ops.permute import (
+    apply_fixed_perm,
+    expand_to_edges,
+    segmented_scan_reduce,
+)
 
 SMALL_TABLE = 128 * 128 * 4  # 128-row bands: the 384-row graphs get K=3
 
@@ -408,3 +417,152 @@ def test_composite_inverse_cached_with_rank(monkeypatch):
     np.testing.assert_array_equal(inv.numpy()[comp.numpy()],
                                   np.arange(comp.shape[0]))
     assert tbanded.get_pull_to_push_rank(gt, *lt, inverse=True) is inv
+
+
+# --------------------------------------- tests/test_engine.py's movers
+def engine_slices(seed):
+    """tests/test_engine.py's ``_slice``: both packages' padded graphs."""
+    def one(pkg, **kw):
+        hg = pkg.erdos_renyi(150, 900, seed=seed, undirected=True,
+                             weighted=True)
+        return pkg.GraphSlice.from_host(hg, **kw)
+
+    return one(jg), one(tg, device="cpu")
+
+
+def both(jfn, tfn, j_args, t_args):
+    """Each package's result, as numpy arrays."""
+    return np.asarray(jfn(*j_args)), tfn(*t_args).numpy()
+
+
+def assert_bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["int_csr", "float_csc", "heads"])
+def test_expand_to_edges_bitwise_jax(case):
+    """test_engine.py's expansions: int32 by the CSR offsets, float32 with
+    inf and -0.0 by the CSC offsets, and a trailing head axis, bitwise
+    JAX's and the gather by the sorted segment ids."""
+    seed = {"int_csr": 0, "float_csc": 1, "heads": 7}[case]
+    jgs, tgs = engine_slices(seed)
+    rng = np.random.RandomState(seed)
+    if case == "int_csr":
+        v = rng.randint(-(2**31), 2**31 - 1, jgs.n_pad).astype(np.int32)
+        off, ids = "row_offsets", "csr_srcs"
+    else:
+        v = rng.randn(*((jgs.n_pad, 3) if case == "heads" else
+                        (jgs.n_pad,))).astype(np.float32)
+        v[::7] = np.inf
+        v[3::11] = -0.0
+        off, ids = "col_offsets", "csc_dsts"
+    want, got = both(j_expand, expand_to_edges,
+                     (jnp.asarray(v), getattr(jgs, off), jgs.m_pad),
+                     (torch.from_numpy(v), getattr(tgs, off), tgs.m_pad))
+    assert_bits(got, want)
+    assert_bits(got, v[np.asarray(getattr(jgs, ids))])
+
+
+def test_expand_to_edges_past_the_last_offset():
+    """Slots past ``offsets[-1]`` and empty segments before them take the
+    last segment that begins at or before the slot, as JAX's cumsum gives
+    them."""
+    off = np.array([0, 2, 2, 5, 5, 5], np.int32)  # 5 segments, 3 empty
+    v = np.arange(10, 15, dtype=np.int32)
+    want, got = both(j_expand, expand_to_edges,
+                     (jnp.asarray(v), jnp.asarray(off), 8),
+                     (torch.from_numpy(v), torch.from_numpy(off), 8))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, [10, 10, 12, 12, 12, 14, 14, 14])
+
+
+def test_apply_fixed_perm_csr_to_csc_roundtrip():
+    """test_engine.py's roundtrip: CSR to CSC order by the graph's rank,
+    one payload and two sharing the permutation, bitwise JAX's."""
+    jgs, tgs = engine_slices(2)
+    vals = np.random.RandomState(2).rand(jgs.m_pad).astype(np.float32)
+    want = np.asarray(j_apply_fixed_perm(jgs.csr_to_csc_rank,
+                                         jnp.asarray(vals)))
+    got = apply_fixed_perm(tgs.csr_to_csc_rank, torch.from_numpy(vals))
+    assert_bits(got.numpy(), want)
+    a, b = apply_fixed_perm(tgs.csr_to_csc_rank, torch.from_numpy(vals),
+                            torch.from_numpy(vals * 2))
+    np.testing.assert_array_equal(a.numpy() * 2, b.numpy())
+
+
+SCAN_CASES = [  # (op, dtype, identity, trailing dims)
+    ("min", np.int32, np.iinfo(np.int32).max, ()),
+    ("max", np.int32, np.iinfo(np.int32).min, ()),
+    ("sum", np.int32, 0, ()),
+    ("bor", np.int32, 0, ()),
+    ("min", np.int32, -7, ()),  # empty segments take a non-neutral identity
+    ("max", np.float32, -np.inf, (4,)),
+    ("min", np.float32, 3.0, (2, 5)),  # 10 columns: two launches
+    ("bor", np.int32, 5, (3,)),
+    ("sum", np.float32, 0.0, ()),
+    ("sum", np.float32, 0.0, (4,)),
+]
+
+
+@pytest.mark.parametrize("op,dtype,identity,tail", SCAN_CASES)
+def test_segmented_scan_reduce_matches_jax(op, dtype, identity, tail):
+    """test_engine.py's segmented scans (min, max, the float sum, the
+    batched [m, 4] max and sum) and JAX's ``bor``, plus int32 sums, a
+    non-neutral identity for the empty segments (the pad vertices) and 10
+    trailing columns: bitwise JAX's, but the float32 sum within rtol 1e-5
+    of JAX's and of the float64 oracle; every column the one-column call
+    bitwise."""
+    jgs, tgs = engine_slices(5)
+    rng = np.random.RandomState(5)
+    shape = (jgs.m_pad,) + tail
+    if dtype == np.int32:
+        vals = rng.randint(0, 10000 if op != "bor" else 2**31 - 1,
+                           shape).astype(np.int32)
+    else:
+        vals = rng.rand(*shape).astype(np.float32)
+    ident = np.array(identity, dtype)
+    want = np.asarray(j_scan(jnp.asarray(vals), jgs.csc_dsts,
+                             jgs.col_offsets, op, jnp.asarray(ident)))
+    got = segmented_scan_reduce(torch.from_numpy(vals), tgs.csc_dsts,
+                                tgs.col_offsets, op, identity).numpy()
+    assert got.shape == want.shape == (jgs.n_pad,) + tail
+    assert got.dtype == want.dtype
+    off = np.asarray(jgs.col_offsets)
+    empty = off[1:] == off[:-1]
+    assert empty.any() and (got[empty] == ident).all()
+    if op == "sum" and dtype == np.float32:
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        ref = np.zeros((jgs.n_pad,) + tail)
+        np.add.at(ref, np.asarray(jgs.csc_dsts), vals.astype(np.float64))
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
+    else:
+        np.testing.assert_array_equal(got, want)
+    flat, cols = vals.reshape(jgs.m_pad, -1), got.reshape(jgs.n_pad, -1)
+    for k in range(flat.shape[1] if tail else 0):
+        one = segmented_scan_reduce(
+            torch.from_numpy(np.ascontiguousarray(flat[:, k])),
+            tgs.csc_dsts, tgs.col_offsets, op, identity).numpy()
+        np.testing.assert_array_equal(cols[:, k], one)
+
+
+def test_segmented_scan_reduce_checks_its_arguments():
+    """``max_seg_len`` is checked as ``bfs``'s caps are and changes
+    nothing; a dtype the kernel does not take raises, on a CUDA tensor as
+    on the CPU (no plain fallback on the card)."""
+    from test_torch_gather import on_card
+
+    jgs, tgs = engine_slices(5)
+    vals = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 100, jgs.m_pad).astype(np.int32))
+    args = (tgs.csc_dsts, tgs.col_offsets, "max", -1)
+    ref = segmented_scan_reduce(vals, *args)
+    assert torch.equal(segmented_scan_reduce(vals, *args, max_seg_len=3),
+                       ref)
+    with pytest.raises(ValueError):
+        segmented_scan_reduce(vals, *args, max_seg_len=-1)
+    with pytest.raises(TypeError):
+        segmented_scan_reduce(vals, *args, max_seg_len=2.5)
+    for wrap in (lambda t: t, on_card):
+        with pytest.raises(TypeError, match="int32 or float32"):
+            segmented_scan_reduce(wrap(vals.double()), *args)

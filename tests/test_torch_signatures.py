@@ -81,6 +81,10 @@ PEELING = [(getattr(jalg, n), getattr(talg, n)) for n in (
                               (jsort.segment_argsort, tsort.segment_argsort)]
 
 
+# ops/permute.py's movers (JAX's last three ops names)
+MOVERS = [(getattr(jops, n), getattr(tops, n)) for n in (
+    "expand_to_edges", "apply_fixed_perm", "segmented_scan_reduce")]
+
 # the drivers: loaders, datasets, checkpoints, profiling, timing, native
 DRIVERS = [(getattr(jg, n), getattr(tg, n)) for n in (
     "load_mtx", "from_edges")] + [
@@ -95,9 +99,10 @@ DRIVERS = [(getattr(jg, n), getattr(tg, n)) for n in (
 
 @pytest.mark.parametrize("jfn,tfn", [(jbfs, tbfs), (jspmm, tspmm),
                                      (jsddmm, tsddmm)] + SLICE + PEELING
-                         + DRIVERS,
+                         + MOVERS + DRIVERS,
                          ids=["bfs", "spmm", "sddmm"]
-                         + [j.__name__ for j, _ in SLICE + PEELING + DRIVERS])
+                         + [j.__name__ for j, _ in SLICE + PEELING + MOVERS
+                            + DRIVERS])
 def test_parameters_are_the_jax_package_s(jfn, tfn):
     want = inspect.signature(jfn).parameters
     got = inspect.signature(tfn).parameters
@@ -126,6 +131,14 @@ def test_drivers_pinned_divergences():
     for name in ("fn", "warmup", "repeat"):
         assert got[name].default == want[name].default, name
     assert got["device"].default is want["block"].default is None
+
+
+def test_ops_export_the_jax_package_s_names():
+    names = {n for n in vars(jops) if not n.startswith("_")
+             and not inspect.ismodule(getattr(jops, n))}
+    assert len(names) == 28, names
+    assert {n for n in vars(tops) if not n.startswith("_")
+            and not inspect.ismodule(getattr(tops, n))} == names
 
 
 def test_utils_export_the_jax_package_s_names():
