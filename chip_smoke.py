@@ -29,8 +29,12 @@ Phases; any failure ends with a traceback and a non-zero exit:
    and, where one PyTorch call computes the same function, that call.
    The launch path's host cost per call is printed too;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
-   weighted)`` and from 3 more reached sources: labels bitwise equal to
-   ``bfs_cpu``, preds the host's min-id parent; time and MTEPS;
+   weighted)`` and from 3 more reached sources, in three schedules (JAX's
+   defaults: a sparse tier, no chain at mean degree 32; dense rounds only;
+   every round pull): labels bitwise equal to ``bfs_cpu``, preds the
+   host's min-id parent, the round counters logged, kernel 3 launched
+   once a dense or pull round plus once for the preds; each schedule's
+   time, MTEPS, device ops a round and idle share from the hub;
 4. the 2-layer GCN forward [128, 128, 32], float32 and bf16 messages, on
    ``erdos_renyi(2048, 16384)`` and the RMAT graph, against the float64
    oracle ``gcn_forward_cpu``;
@@ -55,7 +59,8 @@ Phases; any failure ends with a traceback and a non-zero exit:
    RMAT graph's banded forward and gradients against ``impl="xla"``, the
    train step time;
 9. ``bfs_batch`` from the 8 highest-degree RMAT sources: each row bitwise
-   ``bfs``'s; time per source and amortised MTEPS, with and without preds;
+   ``bfs``'s, its four round counters too; time per source and amortised
+   MTEPS, with and without preds;
 10. SSSP from the hub and 3 reached sources: dists bitwise ``sssp_cpu``,
     preds the host's min-id parent; with dense rounds only, one segment
     reduce a round plus one for the preds and the same bits; ``delta`` and
@@ -63,6 +68,9 @@ Phases; any failure ends with a traceback and a non-zero exit:
 11. ``sssp_batch`` over the 8 sources, each row bitwise ``sssp``'s;
 12. SSSP on ``grid2d(2048, 256)`` (524,288 vertices), ``delta`` and
     ``bellman``, bitwise ``sssp_cpu``: rounds, time, time a round;
+    12b. BFS on the same graph from vertex 0, JAX's defaults (the chained
+    rounds) and dense rounds only, checked as in phase 3: rounds, time,
+    time a round, device ops a round, idle share;
 13. PageRank ``standard`` and ``mini`` (30 rounds at most) against
     ``pagerank_cpu``, one segment reduce a round; time, edges per second;
 14. connected components, bitwise ``cc_cpu``, two segment reduces a round;
@@ -79,7 +87,8 @@ Phases; any failure ends with a traceback and a non-zero exit:
     their device idle share, and phases 15-17 each oracle's time;
 18. the command-line drivers (``mini_tpu_torch.cli.main``) on the card:
     the ten subcommands on ``--rmat-scale 16`` from the hub with
-    ``--validate`` (``lspar`` without), each a path of its own;
+    ``--validate`` (``lspar`` without), each a path of its own, the
+    ``bfs`` line of rounds and ``pull:`` logged;
     tests/test_cli.py's fixture invocations; ``python -m
     mini_tpu_torch.cli bfs`` as a process of its own;
 19. ``synthetic_arxiv_like(scale=17)``: the native host build bitwise the
@@ -1131,33 +1140,72 @@ def host_min_parent(hg, labels):
     return np.where((labels > 0) & (pred != big), pred, -1).astype(np.int32)
 
 
-def phase_bfs(hg, g, device):
-    from mini_tpu_torch.algorithms import bfs, bfs_cpu, validate_preds
+# BFS schedules: JAX's defaults (a sparse tier; the chain only below mean
+# out-degree 5), dense rounds only, every round a pull round
+BFS_SCHEDULES = (("default", {}), ("dense only", dict(sparse_cape=0)),
+                 ("all pull", dict(alpha=1e9)))
+
+
+def bfs_rounds(r) -> str:
+    return (f"{r.num_iterations} rounds ({r.num_pull_iterations} pull, "
+            f"{r.num_sparse_iterations} sparse, {r.num_chained_iterations} "
+            f"chained)")
+
+
+def check_bfs(hg, g, src, kw, want):
+    """``bfs(g, src, **kw)``: labels bitwise ``want`` (``bfs_cpu``'s), preds
+    the host's min-id parent, nothing dropped, and kernel 3 launched once a
+    dense or pull round and once for the preds (a sparse or chained round
+    launches none).  The result."""
+    from mini_tpu_torch.algorithms import bfs
     from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+
+    before = k1.launches
+    r = bfs(g, src, **kw)
+    dense = r.num_iterations - r.num_sparse_iterations
+    assert k1.launches - before == dense + 1, (src, kw, k1.launches - before)
+    labels = r.labels.cpu().numpy()[: hg.n]
+    np.testing.assert_array_equal(labels, want)
+    np.testing.assert_array_equal(r.preds.cpu().numpy()[: hg.n],
+                                  host_min_parent(hg, labels))
+    assert not r.sparse_overflowed, (src, kw)
+    return r
+
+
+def phase_bfs(hg, g, device):
+    """BFS from the hub and 3 more reached sources in each of
+    ``BFS_SCHEDULES``: the same labels and preds, the oracles'; then each
+    schedule timed from the hub."""
+    from mini_tpu_torch.algorithms import bfs, bfs_cpu, validate_preds
     from mini_tpu_torch.utils.timing import time_fn
 
     hub = int(np.argmax(hg.out_degrees))
-    res = bfs(g, hub)
-    labels_hub = res.labels.cpu().numpy()[: hg.n]
-    reached = np.nonzero(labels_hub >= 0)[0]
+    reached = np.nonzero(bfs_cpu(hg, hub) >= 0)[0]
     others = np.random.RandomState(0).choice(reached, 3, replace=False)
     for src in [hub] + [int(s) for s in others]:
-        r = bfs(g, src)
-        labels = r.labels.cpu().numpy()[: hg.n]
-        preds = r.preds.cpu().numpy()[: hg.n]
-        np.testing.assert_array_equal(labels, bfs_cpu(hg, src))
-        np.testing.assert_array_equal(preds, host_min_parent(hg, labels))
-        assert validate_preds(labels, preds, hg, src), src
-        assert not r.sparse_overflowed
-        log(f"# bfs src={src}: {r.num_iterations} iterations, "
-            f"{int((labels >= 0).sum())} reached, labels and preds exact")
-    t = time_fn(lambda: bfs(g, hub), warmup=1, repeat=3, device=device)
-    edges_reached = float(hg.out_degrees[reached].sum())
-    mteps = t.mteps(edges_reached)
-    assert k1.launches > 0
-    log(f"# phase 3: bfs hub={hub} iterations={res.num_iterations} "
-        f"time {t.min_s * 1e3:.3f} ms (min of 3) mteps {mteps:.2f} "
-        f"segment_reduce launches {k1.launches}")
+        want = bfs_cpu(hg, src)
+        runs = {label: check_bfs(hg, g, src, kw, want)
+                for label, kw in BFS_SCHEDULES}
+        assert validate_preds(want, runs["default"].preds.cpu().numpy(), hg,
+                              src), src
+        assert runs["dense only"].num_sparse_iterations == 0
+        pull = runs["all pull"]
+        assert pull.num_pull_iterations == pull.num_iterations
+        if src == hub:
+            hub_runs = runs
+        log(f"# bfs src={src}: {int((want >= 0).sum())} reached, labels and "
+            f"preds exact in every schedule; " + "; ".join(
+                f"{label} {bfs_rounds(r)}" for label, r in runs.items()))
+    edges_reached = reached_edges(hg, reached)
+    for label, kw in BFS_SCHEDULES:
+        r = hub_runs[label]
+        t = time_fn(lambda: bfs(g, hub, **kw), warmup=1, repeat=3,
+                    device=device)
+        busy = idle(lambda: bfs(g, hub, **kw), device, t.min_s,
+                    r.num_iterations, 3)
+        log(f"# phase 3: bfs hub={hub} {label}: {bfs_rounds(r)}, "
+            f"{t.min_s * 1e3:.3f} ms (min of 3), "
+            f"{t.mteps(edges_reached):.2f} MTEPS, {busy}")
 
 
 def phase_gcn(name, hg, g, device):
@@ -1725,11 +1773,12 @@ def reached_edges(hg, reached) -> float:
 
 def phase_bfs_batch(hg, g, device):
     """``bfs_batch`` from the 8 highest-degree sources: each row bitwise
-    ``bfs``'s; the time per source and the amortised MTEPS with and without
-    preds (``bench.py:329-359``)."""
+    ``bfs``'s, its four round counters too; the time per source and the
+    amortised MTEPS with and without preds (``bench.py:329-359``)."""
     import torch
 
     from mini_tpu_torch.algorithms import bfs, bfs_batch
+    from mini_tpu_torch.algorithms.bfs import COUNTERS
     from mini_tpu_torch.utils.timing import time_fn
 
     srcs = top_sources(hg)
@@ -1741,7 +1790,10 @@ def phase_bfs_batch(hg, g, device):
         assert torch.equal(res.labels[i], one.labels), s
         assert torch.equal(res.preds[i], one.preds), s
         assert torch.equal(lean.labels[i], one.labels), s
-        assert int(res.num_iterations[i]) == one.num_iterations, s
+        for f in COUNTERS:
+            assert int(getattr(res, f)[i]) == getattr(one, f), (s, f)
+            assert int(getattr(lean, f)[i]) == getattr(one, f), (s, f)
+        assert not bool(res.sparse_overflowed[i]), s
         edges += reached_edges(hg, one.labels.cpu().numpy()[: hg.n] >= 0)
     assert bool((lean.preds == -1).all())
     rounds = int(res.num_iterations.sum())
@@ -1754,7 +1806,8 @@ def phase_bfs_batch(hg, g, device):
         log(f"# phase 9: bfs_batch {SOURCES} sources, {label}: "
             f"{t.min_s / SOURCES * 1e3:.3f} ms a source (min of 3), "
             f"amortised {edges / t.min_s / 1e6:.2f} MTEPS; {busy}; rows "
-            f"bitwise bfs")
+            f"bitwise bfs, their counters bfs's ({rounds} rounds, "
+            f"{int(res.num_sparse_iterations.sum())} sparse)")
 
 
 def host_sssp_parent(hg, dists, src):
@@ -1864,19 +1917,25 @@ def phase_sssp_batch(hg, g, device):
         f"{edges / t.min_s / 1e6:.2f} MTEPS; rows bitwise sssp")
 
 
-def phase_sssp_grid(device):
-    """Delta-stepping's target family: ``grid2d(2048, 256)`` from vertex 0,
-    ``delta`` and ``bellman`` both bitwise ``sssp_cpu``; many small rounds,
-    so the time per round is the host loop's cost."""
-    from mini_tpu_torch.algorithms import sssp, sssp_cpu
+def grid_graph(device):
+    """``grid2d(2048, 256)``, built once for phases 12 and 12b."""
     from mini_tpu_torch.graph import GraphSlice, grid2d
-    from mini_tpu_torch.utils.timing import time_fn
 
     t0 = time.perf_counter()
     hg = grid2d(*GRID, seed=0, weighted=True)
     g = GraphSlice.from_host(hg, device=device)
     log(f"# grid2d{GRID}: n={hg.n} m={hg.m} (host build "
         f"{time.perf_counter() - t0:.2f} s)")
+    return hg, g
+
+
+def phase_sssp_grid(hg, g, device):
+    """Delta-stepping's target family: ``grid2d(2048, 256)`` from vertex 0,
+    ``delta`` and ``bellman`` both bitwise ``sssp_cpu``; many small rounds,
+    so the time per round is the host loop's cost."""
+    from mini_tpu_torch.algorithms import sssp, sssp_cpu
+    from mini_tpu_torch.utils.timing import time_fn
+
     want = sssp_cpu(hg, 0)[0]
     for variant in ("delta", "bellman"):
         r = sssp(g, 0, variant=variant)
@@ -1890,6 +1949,33 @@ def phase_sssp_grid(device):
             f"{t.min_s * 1e3:.1f} ms, "
             f"{t.min_s / r.num_iterations * 1e3:.4f} ms a round, "
             f"{t.mteps(edges):.2f} MTEPS, {busy}; dists and preds exact")
+
+
+def phase_bfs_grid(hg, g, device):
+    """BFS's chained family: ``grid2d(2048, 256)`` from vertex 0 (mean
+    out-degree under 5, so the chain is on by default), JAX's defaults and
+    dense rounds only, each checked as phase 3 checks (``check_bfs``), then
+    one timed run each (the checked run was the warm-up)."""
+    from mini_tpu_torch.algorithms import bfs, bfs_cpu
+    from mini_tpu_torch.utils.timing import time_fn
+
+    want, t_oracle = oracle(bfs_cpu, hg, 0)
+    edges = reached_edges(hg, want >= 0)
+    for label, kw in BFS_SCHEDULES[:2]:
+        r = check_bfs(hg, g, 0, kw, want)
+        if kw:
+            assert r.num_sparse_iterations == 0
+        else:
+            assert r.num_chained_iterations > 0
+        t = time_fn(lambda: bfs(g, 0, **kw), warmup=0, repeat=1,
+                    device=device)
+        busy = idle(lambda: bfs(g, 0, **kw), device, t.min_s,
+                    r.num_iterations)
+        log(f"# phase 12b: bfs grid2d{GRID} {label}: {bfs_rounds(r)}, "
+            f"{t.min_s * 1e3:.1f} ms, "
+            f"{t.min_s / r.num_iterations * 1e3:.4f} ms a round, "
+            f"{t.mteps(edges):.2f} MTEPS, {busy}; labels and preds exact "
+            f"(bfs_cpu {t_oracle:.1f} s)")
 
 
 def phase_pagerank(hg, g, device):
@@ -2180,6 +2266,9 @@ def phase_cli(hub: int) -> list:
             run_cli(argv))))
         shown = [ln for ln in lines if not ln.startswith(("labels[", "dists[",
                                                           "top-10", " "))]
+        if algo == "bfs":  # the rounds and the pull count, as JAX prints them
+            assert any(ln.startswith("iterations: ") and " (pull: " in ln
+                       for ln in lines), lines
         log(f"# cli {' '.join(argv)}: {' | '.join(shown)} "
             f"({time.perf_counter() - t0:.2f} s with the oracle)")
     t0 = time.perf_counter()
@@ -3073,13 +3162,18 @@ def main(argv) -> None:
         drive("bfs_batch", phase_bfs_batch, hg, g, device),
         drive("sssp", phase_sssp, hg, g, device),
         drive("sssp_batch", phase_sssp_batch, hg, g, device),
-        drive("sssp_grid", phase_sssp_grid, device),
+    ]
+    grid = grid_graph(device)
+    paths += [
+        drive("sssp_grid", phase_sssp_grid, *grid, device),
+        drive("bfs_grid", phase_bfs_grid, *grid, device),
         drive("pagerank", phase_pagerank, hg, g, device),
         drive("cc", phase_cc, hg, g, device),
         drive("kcore", phase_kcore, hg, g, device),
         drive("coloring", phase_coloring, hg, g, device),
         drive("lspar", phase_lspar, hg, g, device),
     ]
+    del grid
     paths += phase_cli(int(np.argmax(hg.out_degrees)))
     paths += [
         drive("arxiv", phase_arxiv, device),

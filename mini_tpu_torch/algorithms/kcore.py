@@ -38,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from mini_tpu_torch.algorithms.sssp import _read, _tier
+from mini_tpu_torch.algorithms._loop import _read, _tier
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.ops.engine import (
     reduce_csc_by_dst,

@@ -34,7 +34,13 @@ import numbers
 import numpy as np
 import torch
 
-from mini_tpu_torch.algorithms.bfs import check_caps, stack_results
+from mini_tpu_torch.algorithms._loop import (
+    _mean_degree,
+    _read,
+    _tier,
+    check_caps,
+    stack_results,
+)
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.ops.engine import reduce_csc_by_dst
 from mini_tpu_torch.ops.sparse import (
@@ -64,17 +70,6 @@ class SsspResult:
     sparse_overflowed: bool  # any sparse tier dropped work (stays False:
     # a tier runs only when the frontier fits it)
     num_chained_iterations: int = 0  # delta rounds that rode the chain
-
-
-def _read(*scalars) -> list:
-    """The round's one device-to-host read: its scalars in one transfer."""
-    return torch.stack([s.to(torch.int32) for s in scalars]).tolist()
-
-
-def _tier(tiers, fe: int, fl: int):
-    """The smallest tier that holds ``fl`` vertices and ``fe`` edges, or
-    None (the dense sweep)."""
-    return next(((cv, ce) for cv, ce in tiers if fe <= ce and fl <= cv), None)
 
 
 def _start(g: GraphSlice, src: int):
@@ -213,12 +208,6 @@ def _finish(g, dist, src, it, sparses, ovf, with_preds, chained=0):
                         pred_min, -1).to(torch.int32)
     preds[src] = -1
     return SsspResult(dist, preds, it, sparses, bool(ovf), chained)
-
-
-def _mean_degree(g: GraphSlice) -> float:
-    """The mean out-degree of the real vertices, from the metadata (their
-    degrees sum to m): no read of the device."""
-    return g.m / g.n if g.n else float("nan")
 
 
 def _default_delta(g: GraphSlice) -> float:

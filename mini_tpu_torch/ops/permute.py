@@ -65,7 +65,7 @@ def segmented_scan_reduce(
     ``max_seg_len`` bounds JAX's scan depth; it is checked and changes
     nothing.  Values are int32 or float32 (``bor`` int32 only): any other
     dtype raises, on the card as on the CPU."""
-    from mini_tpu_torch.algorithms.bfs import check_caps
+    from mini_tpu_torch.algorithms._loop import check_caps
 
     check_caps(max_seg_len=max_seg_len)
     offsets = offsets.to(torch.int32)

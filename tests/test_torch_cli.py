@@ -2,11 +2,10 @@
 tests/test_cli.py, run with ``--cpu`` through ``mini_tpu_torch.cli.main``
 and ``mini_tpu.cli.main``, exits with the same code and prints the same
 result lines (graph size, iterations, components, largest k-core,
-selected edges, the BFS labels and SSSP dists, PageRank's top-10 ids,
-``Correct.``).  The divergences allowed, each pinned by name:
+selected edges, the BFS rounds with their ``pull:`` count, the BFS labels
+and SSSP dists, PageRank's top-10 ids, ``Correct.``).  The divergences
+allowed, each pinned by name:
 
-* ``pull:`` (BFS's direction counter): every round of the port is the
-  dense sweep, so it stays 0;
 * PageRank's top-10 values: float32 sums in another order (rtol 1e-4, the
   PageRank tolerance of tests/test_torch_traversal.py);
 * coloring's ``iterations`` and ``colors used``: its salts come from a
@@ -91,7 +90,7 @@ def result_lines(algo, out):
                         re.findall(r"np\.float32\(([-0-9.e]+)\)", line)]
             assert len(ids) == len(top_vals) == 10
             line = f"top-10 ids: {ids}"
-        lines.append(re.sub(r" \(pull: .*\)$", "", line))
+        lines.append(line)
     return lines, top_vals
 
 
@@ -112,10 +111,16 @@ def test_same_exit_and_result_lines_as_jax(argv):
 
 
 def test_bfs_pull_counter_is_zero():
-    """The pinned ``pull:`` divergence: the port's counter stays 0."""
-    _, out = run(tcli.main, ["bfs", "--file", FIXTURE, "--undirected",
-                             "--sources", "0,2", "--cpu"])
-    assert "iterations: [3, 3] (pull: [0, 0])" in out.splitlines()
+    """The ``pull:`` count is JAX's CLI's on the same invocation: 0 on the
+    fixture at the default ``alpha``, every round at ``--alpha 1e9``."""
+    cases = [((), "iterations: [3, 3] (pull: [0, 0])"),
+             (("--alpha", "1e9"), "iterations: [3, 3] (pull: [3, 3])")]
+    for alpha, want in cases:
+        argv = ["bfs", "--file", FIXTURE, "--undirected", "--sources", "0,2",
+                *alpha, "--cpu"]
+        lines = [run(main, argv)[1].splitlines()[1]
+                 for main in (jcli.main, tcli.main)]
+        assert lines == [want, want]
 
 
 def test_module_entry_runs():

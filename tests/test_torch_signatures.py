@@ -42,6 +42,7 @@ from mini_tpu_torch.graph import datasets as tds
 import mini_tpu_torch.algorithms as talg
 import mini_tpu_torch.ops as tops
 from mini_tpu_torch.algorithms import bfs as tbfs
+from mini_tpu_torch.algorithms.bfs import COUNTERS
 from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.ops import sort as tsort
 from mini_tpu_torch.ops.spmm import sddmm as tsddmm
@@ -158,6 +159,8 @@ def graphs():
 def assert_same_bfs(want, got):
     np.testing.assert_array_equal(got.labels.numpy(), np.asarray(want.labels))
     np.testing.assert_array_equal(got.preds.numpy(), np.asarray(want.preds))
+    for f in COUNTERS:
+        assert getattr(got, f) == int(getattr(want, f)), f
 
 
 @pytest.mark.parametrize("args,kwargs", [
@@ -186,7 +189,7 @@ def test_bfs_third_positional_is_alpha_not_the_round_cap(graphs):
     gj, gt = graphs
     full = tbfs(gt, 0)
     assert full.num_iterations > 2
-    # as the round cap, 2 would cut the search; as alpha it changes nothing
+    # as the round cap, 2 would cut the search; as alpha it changes no label
     assert_same_bfs(jbfs(gj, 0, 2), tbfs(gt, 0, 2))
     assert tbfs(gt, 0, 2).num_iterations == full.num_iterations
     assert tbfs(gt, 0, None, 2).num_iterations == 2

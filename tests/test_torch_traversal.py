@@ -1,8 +1,9 @@
 """Port parity: ``bfs_batch``, PageRank and connected components of
-``mini_tpu_torch`` against ``mini_tpu``'s on the same graphs.  ``bfs_batch``
-and CC bitwise (and CC against the union-find oracle ``cc_cpu``); PageRank
-within ``tests/test_algorithms.py``'s tolerance (rtol 1e-4, atol 1e-6) of
-JAX's ranks and of the float64 oracle ``pagerank_cpu``: the segment-reduce
+``mini_tpu_torch`` against ``mini_tpu``'s on the same graphs.
+``bfs_batch`` (every field: its round counters equal too) and CC bitwise
+(and CC against the union-find oracle ``cc_cpu``); PageRank within
+``tests/test_algorithms.py``'s tolerance (rtol 1e-4, atol 1e-6) of JAX's
+ranks and of the float64 oracle ``pagerank_cpu``: the segment-reduce
 kernel sums in another order than ``jax.ops.segment_sum``, so the ranks are
 not bitwise, and a vertex whose move sits on the ``tol_rel`` edge can end
 the iteration one round apart."""
@@ -28,11 +29,13 @@ from mini_tpu_torch.algorithms import (
     pagerank,
     pagerank_cpu,
 )
+from mini_tpu_torch.algorithms.bfs import COUNTERS as BFS_COUNTERS
 
 from test_torch_graph import build
 from test_torch_sssp import count_reads
 
 PR_TOL = dict(rtol=1e-4, atol=1e-6)
+BFS_FIELDS = ("labels", "preds", "sparse_overflowed") + BFS_COUNTERS
 
 
 def build_graph(pkg, name):
@@ -64,7 +67,7 @@ def test_bfs_batch_matches(name, with_preds):
     want = jbfs_batch(gj, np.array(srcs), with_preds=with_preds)
     got = bfs_batch(gt, srcs, with_preds=with_preds)
     assert got.labels.shape == (3, gt.n_pad)
-    for f in ("labels", "preds", "num_iterations"):
+    for f in BFS_FIELDS:
         w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
         assert g.dtype == w.dtype, f
         np.testing.assert_array_equal(g, w, err_msg=f)
@@ -73,9 +76,12 @@ def test_bfs_batch_matches(name, with_preds):
     for i, s in enumerate(srcs):  # each row is bfs's, bit for bit
         one = bfs(gt, s)
         assert torch.equal(got.labels[i], one.labels)
-        assert int(got.num_iterations[i]) == one.num_iterations
+        for f in BFS_COUNTERS:
+            assert int(getattr(got, f)[i]) == getattr(one, f), f
         if with_preds:
             assert torch.equal(got.preds[i], one.preds)
+    if name == "grid24":  # the chained rounds ran
+        assert int(got.num_chained_iterations.sum()) > 0
     if not with_preds:
         assert (got.preds == -1).all()
 
@@ -149,8 +155,9 @@ def test_cc_max_iter():
 def test_one_read_a_round(monkeypatch):
     """PageRank reads whether a vertex is still active once a round (and
     once more to find none left); CC whether a label changed, and its
-    count once; ``bfs_batch`` reads its sources once and each BFS once a
-    round and once more."""
+    count once; ``bfs`` once a round and once more, whatever form its
+    rounds take; ``bfs_batch`` reads its sources once and each BFS as
+    ``bfs`` does."""
     ht, _, gt = graphs("grid24")
     r, reads = count_reads(monkeypatch, lambda: pagerank(gt))
     assert 1 < r.num_iterations < 100 and reads == r.num_iterations + 1
@@ -160,3 +167,10 @@ def test_one_read_a_round(monkeypatch):
     assert reads == r.num_iterations + 1
     r, reads = count_reads(monkeypatch, lambda: bfs_batch(gt, [0, 300]))
     assert reads == 1 + int(r.num_iterations.sum()) + 2
+    # a chained round reads the device as a bitmap round does, and a round
+    # cap ends the search with one read of the overflow flag
+    r, reads = count_reads(monkeypatch, lambda: bfs(gt, 0))
+    assert r.num_chained_iterations > 20
+    assert reads == r.num_iterations + 1
+    r, reads = count_reads(monkeypatch, lambda: bfs(gt, 0, max_iter=30))
+    assert r.num_iterations == 30 and reads == 31
