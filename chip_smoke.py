@@ -34,7 +34,7 @@ Phases; any failure ends with a traceback and a non-zero exit:
    every round pull): labels bitwise equal to ``bfs_cpu``, preds the
    host's min-id parent, the round counters logged, kernel 3 launched
    once a dense or pull round plus once for the preds; each schedule's
-   time, MTEPS, device ops a round and idle share from the hub;
+   time and MTEPS from the hub;
 4. the 2-layer GCN forward [128, 128, 32], float32 and bf16 messages, on
    ``erdos_renyi(2048, 16384)`` and the RMAT graph, against the float64
    oracle ``gcn_forward_cpu``;
@@ -70,7 +70,7 @@ Phases; any failure ends with a traceback and a non-zero exit:
     ``bellman``, bitwise ``sssp_cpu``: rounds, time, time a round;
     12b. BFS on the same graph from vertex 0, JAX's defaults (the chained
     rounds) and dense rounds only, checked as in phase 3: rounds, time,
-    time a round, device ops a round, idle share;
+    time a round;
 13. PageRank ``standard`` and ``mini`` (30 rounds at most) against
     ``pagerank_cpu``, one segment reduce a round; time, edges per second;
 14. connected components, bitwise ``cc_cpu``, two segment reduces a round;
@@ -83,8 +83,8 @@ Phases; any failure ends with a traceback and a non-zero exit:
     the first 8 rounds bitwise the CPU's; rounds, colors, time;
 17. L-Spar: one segment reduce, counts (per vertex too) ``lspar_cpu``'s,
     the top-by-sim property, the mask bitwise the CPU's;
-    phases 9-17 print their time (min of 3), their device ops a round and
-    their device idle share, and phases 15-17 each oracle's time;
+    phases 9-17 print their time (min of 3), and phases 15-17 each
+    oracle's time;
 18. the command-line drivers (``mini_tpu_torch.cli.main``) on the card:
     the ten subcommands on ``--rmat-scale 16`` from the hub with
     ``--validate`` (``lspar`` without), each a path of its own, the
@@ -1201,11 +1201,9 @@ def phase_bfs(hg, g, device):
         r = hub_runs[label]
         t = time_fn(lambda: bfs(g, hub, **kw), warmup=1, repeat=3,
                     device=device)
-        busy = idle(lambda: bfs(g, hub, **kw), device, t.min_s,
-                    r.num_iterations, 3)
         log(f"# phase 3: bfs hub={hub} {label}: {bfs_rounds(r)}, "
             f"{t.min_s * 1e3:.3f} ms (min of 3), "
-            f"{t.mteps(edges_reached):.2f} MTEPS, {busy}")
+            f"{t.mteps(edges_reached):.2f} MTEPS")
 
 
 def phase_gcn(name, hg, g, device):
@@ -1750,18 +1748,6 @@ SOURCES = 8  # bench.py:335's Graph500-style batch: the top-degree sources
 GRID = (2048, 256)  # a road-like graph: 524,288 vertices, ~2.1M edges
 
 
-def idle(fn, device, wall_s: float, rounds: int, n: int = 1) -> str:
-    """The device's busy time in one ``fn()`` and its device operations a
-    round (``torch.profiler`` over ``n`` calls), and its idle share of
-    ``wall_s``, the unprofiled time of one call."""
-    events = device_events(fn, device, n)
-    busy = sum(us for _, us in events) / 1e3 / n
-    per = max(rounds, 1)
-    return (f"device busy {busy:.3f} ms in {len(events) / n:.0f} device ops "
-            f"({len(events) / n / per:.1f} ops and {busy / per:.4f} ms a "
-            f"round), idle {100 * (1 - busy / (wall_s * 1e3)):.0f}%")
-
-
 def top_sources(hg) -> list:
     return [int(s) for s in np.argsort(hg.out_degrees)[-SOURCES:]]
 
@@ -1801,11 +1787,9 @@ def phase_bfs_batch(hg, g, device):
                                            dict(with_preds=False))):
         t = time_fn(lambda: bfs_batch(g, srcs, **kw), warmup=1, repeat=3,
                     device=device)
-        busy = idle(lambda: bfs_batch(g, srcs, **kw), device, t.min_s,
-                    rounds)
         log(f"# phase 9: bfs_batch {SOURCES} sources, {label}: "
             f"{t.min_s / SOURCES * 1e3:.3f} ms a source (min of 3), "
-            f"amortised {edges / t.min_s / 1e6:.2f} MTEPS; {busy}; rows "
+            f"amortised {edges / t.min_s / 1e6:.2f} MTEPS; rows "
             f"bitwise bfs, their counters bfs's ({rounds} rounds, "
             f"{int(res.num_sparse_iterations.sum())} sparse)")
 
@@ -1881,13 +1865,10 @@ def phase_sssp(hg, g, device):
     t = time_fn(lambda: sssp(g, hub), warmup=1, repeat=3, device=device)
     td = time_fn(lambda: sssp(g, hub, sparse_cape=0), warmup=1, repeat=3,
                  device=device)
-    busy = idle(lambda: sssp(g, hub), device, t.min_s, res.num_iterations, 3)
-    busy_d = idle(lambda: sssp(g, hub, sparse_cape=0), device, td.min_s,
-                  dense.num_iterations, 3)
     log(f"# phase 10: sssp hub={hub} {sssp_rounds(res)}: "
-        f"{t.min_s * 1e3:.3f} ms (min of 3), {t.mteps(edges):.2f} MTEPS, "
-        f"{busy}; dense rounds only: {sssp_rounds(dense)}, "
-        f"{td.min_s * 1e3:.3f} ms, {busy_d}, segment_reduce launches "
+        f"{t.min_s * 1e3:.3f} ms (min of 3), {t.mteps(edges):.2f} MTEPS; "
+        f"dense rounds only: {sssp_rounds(dense)}, "
+        f"{td.min_s * 1e3:.3f} ms, segment_reduce launches "
         f"{launched} = rounds + 1")
 
 
@@ -1943,12 +1924,10 @@ def phase_sssp_grid(hg, g, device):
         t = time_fn(lambda: sssp(g, 0, variant=variant), warmup=0, repeat=1,
                     device=device)  # the checked run above was the warm-up
         edges = reached_edges(hg, np.isfinite(r.dists.cpu().numpy()[: hg.n]))
-        busy = idle(lambda: sssp(g, 0, variant=variant), device, t.min_s,
-                    r.num_iterations)
         log(f"# phase 12: sssp grid2d{GRID} {variant}: {sssp_rounds(r)}, "
             f"{t.min_s * 1e3:.1f} ms, "
             f"{t.min_s / r.num_iterations * 1e3:.4f} ms a round, "
-            f"{t.mteps(edges):.2f} MTEPS, {busy}; dists and preds exact")
+            f"{t.mteps(edges):.2f} MTEPS; dists and preds exact")
 
 
 def phase_bfs_grid(hg, g, device):
@@ -1969,12 +1948,10 @@ def phase_bfs_grid(hg, g, device):
             assert r.num_chained_iterations > 0
         t = time_fn(lambda: bfs(g, 0, **kw), warmup=0, repeat=1,
                     device=device)
-        busy = idle(lambda: bfs(g, 0, **kw), device, t.min_s,
-                    r.num_iterations)
         log(f"# phase 12b: bfs grid2d{GRID} {label}: {bfs_rounds(r)}, "
             f"{t.min_s * 1e3:.1f} ms, "
             f"{t.min_s / r.num_iterations * 1e3:.4f} ms a round, "
-            f"{t.mteps(edges):.2f} MTEPS, {busy}; labels and preds exact "
+            f"{t.mteps(edges):.2f} MTEPS; labels and preds exact "
             f"(bfs_cpu {t_oracle:.1f} s)")
 
 
@@ -1998,11 +1975,9 @@ def phase_pagerank(hg, g, device):
         t = time_fn(lambda: pagerank(g, variant=variant, max_iter=30),
                     warmup=1, repeat=3, device=device)
         iters = max(r.num_iterations, 1)
-        busy = idle(lambda: pagerank(g, variant=variant, max_iter=30),
-                    device, t.min_s, r.num_iterations, 3)
         log(f"# phase 13: pagerank {variant}: {r.num_iterations} rounds, "
             f"{t.min_s * 1e3:.3f} ms (min of 3), "
-            f"{hg.m * iters / t.min_s / 1e9:.3f} G edges/s, {busy}; "
+            f"{hg.m * iters / t.min_s / 1e9:.3f} G edges/s; "
             f"allclose to pagerank_cpu")
 
 
@@ -2021,11 +1996,9 @@ def phase_cc(hg, g, device):
     assert r.num_components == len(np.unique(want))
     t = time_fn(lambda: connected_components(g), warmup=1, repeat=3,
                 device=device)
-    busy = idle(lambda: connected_components(g), device, t.min_s,
-                r.num_iterations, 3)
     log(f"# phase 14: cc {r.num_components} components, "
         f"{r.num_iterations} rounds, {t.min_s * 1e3:.3f} ms (min of 3), "
-        f"{busy}; bitwise cc_cpu")
+        "bitwise cc_cpu")
 
 
 def oracle(fn, *args):
@@ -2036,13 +2009,12 @@ def oracle(fn, *args):
 
 
 def timed_path(fn, device, rounds: int) -> str:
-    """A path's time, min of 3 after 1 warmup, and its device idle share."""
+    """A path's time, min of 3 after 1 warmup, and its time a round."""
     from mini_tpu_torch.utils.timing import time_fn
 
     t = time_fn(fn, warmup=1, repeat=3, device=device)
     return (f"{t.min_s * 1e3:.3f} ms (min of 3), "
-            f"{t.min_s / max(rounds, 1) * 1e3:.4f} ms a round, "
-            f"{idle(fn, device, t.min_s, rounds)}")
+            f"{t.min_s / max(rounds, 1) * 1e3:.4f} ms a round")
 
 
 def phase_kcore(hg, g, device):

@@ -10,6 +10,7 @@ import numbers
 import torch
 
 from mini_tpu_torch.graph.csr import GraphSlice
+from mini_tpu_torch.utils.profiling import annotate
 
 
 def check_caps(**caps) -> None:
@@ -24,8 +25,10 @@ def check_caps(**caps) -> None:
             raise ValueError(f"{name} must be >= 0, got {cap}")
 
 
+@annotate("loop.read")
 def _read(*scalars) -> list:
-    """The round's one device-to-host read: its scalars in one transfer."""
+    """The round's one device-to-host read: its scalars in one transfer
+    (the span ``loop.read`` while a profiler runs)."""
     return torch.stack([s.to(torch.int32) for s in scalars]).tolist()
 
 

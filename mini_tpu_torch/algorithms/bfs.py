@@ -59,6 +59,7 @@ from mini_tpu_torch.ops.sparse import (
     frontier_edge_count,
     visit_and_chain,
 )
+from mini_tpu_torch.utils.profiling import annotate, scope
 
 _INT_MAX = 2**31 - 1
 # mean out-degree below which the chained rounds are on by default
@@ -183,13 +184,20 @@ def _chain_round(g: GraphSlice, labels, idx, cnt, cape: int, ccap: int,
     return labels, nidx, ncnt, (cok & (cfe <= ccap)).int(), e_ovf
 
 
+@annotate("bfs.query")
 def _bfs(g: GraphSlice, src: int, alpha32, max_iter: int, tiers, ccap: int,
          with_preds: bool) -> BfsResult:
     """The search: each round reads its counts once (the frontier's size,
     whether the chain holds it, the overflow flag, with a tier its
     out-edge total), then runs the chained round if the round before
     derived its frontier, else a pull round on the alpha rule, else the
-    smallest tier that fits, else the dense sweep."""
+    smallest tier that fits, else the dense sweep.
+
+    While a profiler runs, the search is the span ``bfs.query``, and
+    inside it each read is ``loop.read``, the launches of each round
+    ``bfs.round.<kind>`` (its kind as the counters count it: ``chained``,
+    ``pull``, ``sparse`` or ``dense``) and the predecessor pass
+    ``bfs.preds``."""
     dev = g.device
     labels = torch.full((g.n_pad,), -1, dtype=torch.int32, device=dev)
     labels[src] = 0
@@ -213,9 +221,10 @@ def _bfs(g: GraphSlice, src: int, alpha32, max_iter: int, tiers, ccap: int,
             break
         seen += fl
         if chain:
-            labels, nidx, ncnt, nok, e_ovf = _chain_round(
-                g, labels, nidx, ncnt, ccap, ccap, it)
-            ovf = ovf | e_ovf
+            with scope("bfs.round.chained"):
+                labels, nidx, ncnt, nok, e_ovf = _chain_round(
+                    g, labels, nidx, ncnt, ccap, ccap, it)
+                ovf = ovf | e_ovf
             sparses += 1
             chained += 1
         else:
@@ -223,17 +232,21 @@ def _bfs(g: GraphSlice, src: int, alpha32, max_iter: int, tiers, ccap: int,
             pull = bool(np.float32(g.n - seen) < np.float32(fl) * alpha32)
             tier = None if pull or not fe else _tier(tiers, fe[0], fl)
             if tier is None:
-                labels = _dense_round(g, labels, frontier, it)
+                with scope("bfs.round.pull" if pull else "bfs.round.dense"):
+                    labels = _dense_round(g, labels, frontier, it)
                 pulls += pull
             elif ccap == 0:
-                labels, r_ovf = _sparse_round(g, labels, frontier, it, tier)
-                ovf = ovf | r_ovf
+                with scope("bfs.round.sparse"):
+                    labels, r_ovf = _sparse_round(g, labels, frontier, it,
+                                                  tier)
+                    ovf = ovf | r_ovf
                 sparses += 1
             else:
-                idx, cnt, v_ovf = compact_frontier(frontier, tier[0])
-                labels, nidx, ncnt, nok, e_ovf = _chain_round(
-                    g, labels, idx, cnt, tier[1], ccap, it)
-                ovf = ovf | v_ovf | e_ovf
+                with scope("bfs.round.sparse"):
+                    idx, cnt, v_ovf = compact_frontier(frontier, tier[0])
+                    labels, nidx, ncnt, nok, e_ovf = _chain_round(
+                        g, labels, idx, cnt, tier[1], ccap, it)
+                    ovf = ovf | v_ovf | e_ovf
                 sparses += 1
         it += 1
     else:  # the round cap ended the search: one read of the flag
@@ -243,6 +256,7 @@ def _bfs(g: GraphSlice, src: int, alpha32, max_iter: int, tiers, ccap: int,
                      chained)
 
 
+@annotate("bfs.preds")
 def _preds(g: GraphSlice, labels: torch.Tensor) -> torch.Tensor:
     """pred[v] = min{u : (u,v) in E, labels[u] == labels[v] - 1}: one
     ``min`` launch of the segment-reduce kernel."""

@@ -31,6 +31,7 @@ import torch
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.ops.engine import src_vals_to_csc
 from mini_tpu_torch.ops.operators import neighborhood_reduce
+from mini_tpu_torch.utils.profiling import annotate, scope
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +40,7 @@ class PageRankResult:
     num_iterations: int
 
 
+@annotate("pagerank.query")
 def pagerank(
     g: GraphSlice,
     variant: str = "standard",
@@ -47,7 +49,9 @@ def pagerank(
     max_iter: int = 100,
 ) -> PageRankResult:
     """PageRank on ``g``'s device until no vertex moves by more than
-    ``tol_rel`` of its rank, or ``max_iter`` rounds."""
+    ``tol_rel`` of its rank, or ``max_iter`` rounds.  While a profiler
+    runs, the query is the span ``pagerank.query``, and inside it each
+    round's read is ``loop.read`` and its launches ``pagerank.round``."""
     if variant not in ("standard", "mini"):
         raise ValueError(f"unknown variant {variant!r}")
     damping, tol_rel, max_iter = float(damping), float(tol_rel), int(max_iter)
@@ -63,21 +67,27 @@ def pagerank(
             op="sum", direction="pull")
 
     it = 0
-    while it < max_iter and bool(active.any()):  # the round's one read
-        if variant == "mini":
-            reduced = nbr_sum(torch.where(real, ranks, 0.0))
-            new = torch.where(out_deg > 0,
-                              0.15 + damping * reduced / out_deg, 0.15)
-            new = torch.where(torch.isfinite(new), new, 0.0)
-        else:
-            contrib = torch.where(out_deg > 0, ranks / out_deg, 0.0)
-            reduced = nbr_sum(contrib)
-            dangling = torch.where(real & (out_deg == 0), ranks, 0.0).sum()
-            new = (1.0 - damping) / g.n + damping * (reduced + dangling / g.n)
-        new = torch.where(real, new, 0.0)
-        new = torch.where(active, new, ranks)  # converged vertices freeze
-        moved = (new - ranks).abs() > tol_rel * ranks.abs()
-        ranks, active = new, active & moved & real
+    while it < max_iter:
+        with scope("loop.read"):  # the round's one read
+            if not bool(active.any()):
+                break
+        with scope("pagerank.round"):
+            if variant == "mini":
+                reduced = nbr_sum(torch.where(real, ranks, 0.0))
+                new = torch.where(out_deg > 0,
+                                  0.15 + damping * reduced / out_deg, 0.15)
+                new = torch.where(torch.isfinite(new), new, 0.0)
+            else:
+                contrib = torch.where(out_deg > 0, ranks / out_deg, 0.0)
+                reduced = nbr_sum(contrib)
+                dangling = torch.where(real & (out_deg == 0), ranks,
+                                       0.0).sum()
+                new = (1.0 - damping) / g.n + damping * (reduced
+                                                         + dangling / g.n)
+            new = torch.where(real, new, 0.0)
+            new = torch.where(active, new, ranks)  # converged vertices freeze
+            moved = (new - ranks).abs() > tol_rel * ranks.abs()
+            ranks, active = new, active & moved & real
         it += 1
     return PageRankResult(ranks, it)
 

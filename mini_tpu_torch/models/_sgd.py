@@ -8,6 +8,8 @@ from typing import Callable
 
 import torch
 
+from mini_tpu_torch.utils.profiling import scope
+
 
 def init_opt(params: list[dict]) -> list[dict]:
     """SGD-momentum state: zeros like the params."""
@@ -25,18 +27,23 @@ def sgd_momentum_step(
     ``torch.autograd.grad``, then the momentum update.  Returns
     ``(new_params, new_opt, loss)``; the inputs are left as they were.
     ``reduce_grads`` maps the gradients before the update (the
-    distributed steps sum them over the ranks)."""
+    distributed steps sum them over the ranks).  While a profiler runs,
+    the three phases are the spans ``step.forward``, ``step.backward``
+    and ``step.update`` (``reduce_grads`` in the last)."""
     leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
               for p in params]
-    loss = loss_fn(leaves)
+    with scope("step.forward"):
+        loss = loss_fn(leaves)
     flat = [v for p in leaves for v in p.values()]
-    grads = torch.autograd.grad(loss, flat)
-    if reduce_grads is not None:
-        grads = reduce_grads(grads)
-    grads = iter(grads)
-    new_opt, new_params = [], []
-    for p, m in zip(params, opt_state):
-        mo = {k: 0.9 * m[k] + next(grads) for k in p}
-        new_opt.append(mo)
-        new_params.append({k: p[k] - lr * mo[k] for k in p})
+    with scope("step.backward"):
+        grads = torch.autograd.grad(loss, flat)
+    with scope("step.update"):
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
+        grads = iter(grads)
+        new_opt, new_params = [], []
+        for p, m in zip(params, opt_state):
+            mo = {k: 0.9 * m[k] + next(grads) for k in p}
+            new_opt.append(mo)
+            new_params.append({k: p[k] - lr * mo[k] for k in p})
     return new_params, new_opt, loss.detach()

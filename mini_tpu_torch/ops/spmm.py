@@ -44,6 +44,10 @@ from mini_tpu_torch.ops.kernels.spmm_kernel import spmm_pallas
 from mini_tpu_torch.ops.segment import segment_reduce
 from mini_tpu_torch.utils.profiling import scope, scope_of
 
+# banded calls that re-banded their edge weights because no pre-banded
+# weights fit the layout, since the last reset
+rebanded = 0
+
 
 def spmm(
     g: GraphSlice,
@@ -263,6 +267,7 @@ def _other_order(g: GraphSlice, direction: str, w: torch.Tensor):
 
 def _spmm_banded(g, x, direction, weights, weights_banded,
                  weights_banded_bwd, precision, heads=1):
+    global rebanded
     # band height follows the lane-padded float32 row, whatever x's dtype
     # and width: one layout (and the weights pre-banded on it) serves the
     # float32 and bf16 paths and every F up to the next multiple of 128
@@ -296,6 +301,7 @@ def _spmm_banded(g, x, direction, weights, weights_banded,
     elif weights is not None:
         # [m] or [m, H] weights: permute_to_bands takes H columns in one
         # permutation launch
+        rebanded += 1
         mask = g.edge_mask_csc if direction == "pull" else g.edge_mask
         w = torch.where(mask if heads == 1 else mask[:, None], weights, 0)
         w_f = layout.permute_to_bands(w)

@@ -2,21 +2,37 @@
 holds ``mini_tpu``'s five scope names at their counterparts (the banded
 SpMM's band gathers and kernel, the engine's src and dst expansions and
 its dst reduce); ``scope`` is one shared no-op context while no profiler
-runs; ``annotate`` is its decorator form; ``wall_timer`` times a block."""
+runs; ``annotate`` is its decorator form; ``wall_timer`` times a block.
+
+The program's spans: a BFS's query, rounds by kind (as many of each as
+its counters count), reads and predecessor pass, nested in its query; a
+PageRank's query, rounds and reads; a training step's forward, backward
+and update, in that order; and ``ops.spmm.rebanded``, the count of
+banded calls that re-band their weights."""
 
 import json
 import os
+import sys
 import time
 
 import numpy as np
+import pytest
 import torch
 
-from mini_tpu_torch.algorithms import bfs
+import mini_tpu_torch.graph as tg
+from mini_tpu_torch.algorithms import bfs, pagerank
 from mini_tpu_torch.graph import GraphSlice, erdos_renyi
 from mini_tpu_torch.graph import banded as tbanded
+from mini_tpu_torch.models import (gcn_init, gcn_init_opt, gcn_normalize,
+                                   gcn_train_step)
 from mini_tpu_torch.ops.spmm import spmm
 from mini_tpu_torch.utils import annotate, scope, trace, wall_timer
 from mini_tpu_torch.utils import profiling
+
+from test_torch_bfs import build_case
+
+# the module, not the function ``ops/__init__`` exports by its name
+spmm_mod = sys.modules["mini_tpu_torch.ops.spmm"]
 
 SCOPES = ("spmm.band_gather_0", "spmm.band_gather_1", "spmm.banded_kernel",
           "engine.src_to_csc", "engine.expand_dst", "engine.segreduce_dst.or")
@@ -25,6 +41,23 @@ SCOPES = ("spmm.band_gather_0", "spmm.band_gather_1", "spmm.banded_kernel",
 def trace_names(dir_path):
     with open(os.path.join(dir_path, "trace.json")) as f:
         return {e.get("name") for e in json.load(f)["traceEvents"]}
+
+
+def trace_spans(dir_path, prefixes) -> list:
+    """``(name, start, end)`` of the trace's spans whose name starts with
+    one of ``prefixes``, in order of start."""
+    with open(os.path.join(dir_path, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted(((e["name"], float(e["ts"]),
+                    float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"
+                   and e.get("name", "").startswith(prefixes)),
+                  key=lambda s: s[1])
+
+
+def count(spans, name) -> int:
+    return sum(s[0] == name for s in spans)
 
 
 def test_trace_holds_the_five_scopes(tmp_path, monkeypatch):
@@ -78,3 +111,98 @@ def test_annotate_and_wall_timer():
     with wall_timer() as t:
         time.sleep(0.01)
     assert 0.01 <= t.elapsed < 5
+
+
+# families and schedules of tests/test_torch_bfs.py that, between them,
+# run every kind of round: the grid's chain, rmat10's tier and dense
+# rounds, the random graph's last pull round
+ROUND_CASES = [("grid", {}), ("rmat10", {}), ("random", {}),
+               ("grid", dict(chain_cap=0)), ("rmat10", dict(sparse_cape=0)),
+               ("random", dict(sparse_cape=0))]
+ROUND_KINDS = ("dense", "pull", "sparse", "chained")
+
+
+def round_kinds(r) -> dict:
+    """The rounds of each kind that ``r``'s counters count."""
+    return dict(
+        dense=r.num_iterations - r.num_pull_iterations
+        - r.num_sparse_iterations,
+        pull=r.num_pull_iterations,
+        sparse=r.num_sparse_iterations - r.num_chained_iterations,
+        chained=r.num_chained_iterations)
+
+
+@pytest.mark.parametrize("name,kw", ROUND_CASES,
+                         ids=[f"{n}-{'-'.join(k) or 'default'}"
+                              for n, k in ROUND_CASES])
+def test_bfs_spans_follow_its_counters(tmp_path, name, kw):
+    g = GraphSlice.from_host(build_case(tg, name), device="cpu")
+    with trace(str(tmp_path)) as d:
+        r = bfs(g, 0, **kw)
+    spans = trace_spans(d, ("bfs.", "loop."))
+    for kind, n in round_kinds(r).items():
+        assert count(spans, f"bfs.round.{kind}") == n, kind
+    assert count(spans, "loop.read") == r.num_iterations + 1
+    assert count(spans, "bfs.query") == count(spans, "bfs.preds") == 1
+    assert len(spans) == 2 * r.num_iterations + 3  # nothing else
+    (_, q0, q1), = [s for s in spans if s[0] == "bfs.query"]
+    assert all(q0 <= a and b <= q1 for _, a, b in spans)
+
+
+def test_the_round_cases_run_every_kind():
+    seen = set()
+    for name, kw in ROUND_CASES:
+        g = GraphSlice.from_host(build_case(tg, name), device="cpu")
+        seen |= {k for k, n in round_kinds(bfs(g, 0, **kw)).items() if n}
+    assert seen == set(ROUND_KINDS)
+
+
+def test_pagerank_spans_a_round_each(tmp_path):
+    g = GraphSlice.from_host(erdos_renyi(200, 1200, seed=3, undirected=True),
+                             device="cpu")
+    with trace(str(tmp_path)) as d:
+        r = pagerank(g)
+    assert 0 < r.num_iterations < 100  # it converged: one read more
+    spans = trace_spans(d, ("pagerank.", "loop."))
+    assert count(spans, "pagerank.round") == r.num_iterations
+    assert count(spans, "loop.read") == r.num_iterations + 1
+    assert count(spans, "pagerank.query") == 1
+    (_, q0, q1), = [s for s in spans if s[0] == "pagerank.query"]
+    assert all(q0 <= a and b <= q1 for _, a, b in spans)
+
+
+def _gcn_case(dims, impl="auto"):
+    g = GraphSlice.from_host(erdos_renyi(200, 1200, seed=3, undirected=True),
+                             device="cpu")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(g.n_pad, dims[0]).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, dims[-1], g.n_pad)
+                              .astype(np.int32))
+    params = gcn_init(torch.Generator().manual_seed(0), dims, device="cpu")
+    return lambda: gcn_train_step(
+        params, gcn_init_opt(params), g, gcn_normalize(g), x,
+        (labels, g.vertex_mask()), impl=impl)
+
+
+def test_a_train_step_spans_its_three_phases(tmp_path):
+    step = _gcn_case([16, 32, 8])
+    with trace(str(tmp_path)) as d:
+        step()
+    spans = trace_spans(d, ("step.",))
+    assert [s[0] for s in spans] == ["step.forward", "step.backward",
+                                     "step.update"]
+    assert all(a[2] <= b[1] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("hidden,rebands", [(256, 1), (128, 0)])
+def test_rebanded_counts_the_weights_a_step_re_bands(monkeypatch, hidden,
+                                                     rebands):
+    """``gcn_normalize`` pre-bands the weights for F=128: 256-row bands
+    here, so an F=256 layer's 128-row bands re-band them in its forward
+    call, and an F=128 layer's reuse them."""
+    monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", 256 * 128 * 4)
+    step = _gcn_case([16, hidden, 128], impl="banded")
+    before = spmm_mod.rebanded
+    step()
+    step()
+    assert spmm_mod.rebanded - before == 2 * rebands
