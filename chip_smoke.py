@@ -18,14 +18,15 @@ Phases; any failure ends with a traceback and a non-zero exit:
    2^21 elements and at the rmat16 composite rank with 1, 2 and 4
    payloads, as a list and as one table (``permute_rows``), both
    directions, and with payloads of every element size; the SDDMM also with 2 heads; the segment sum
-   (kernel 2) within SUM_TOL at F=128 and 32 in float32 and bf16, two
+   (kernel 2) scaling the band gathers by their edge weights, as the main
+   path calls it, within SUM_TOL at F=128 and 32 in float32 and bf16, two
    launches bitwise equal and equal to the plain emulation of its
-   schedule, also on a star graph (F=1, F=33 bf16, F=128) and on the
-   rmat18 pull layout (K=9, F=32); kernel wrappers given inputs that
-   require grad must raise.  Every kernel has two times: per call over
-   many back-to-back launches (``cuda_ms``: the host's enqueue where it
-   is the longer) and on the device alone (``graph_ms``: a CUDA graph of
-   captured launches), beside its plain version, its bound (``bound``)
+   schedule, also on a star graph (F=1 unweighted, F=33 bf16, F=128) and,
+   without weights, on the rmat18 pull layout (K=9, F=32); kernel
+   wrappers given inputs that require grad must raise.  Every kernel has
+   two times: per call over many back-to-back launches (``cuda_ms``: the
+   host's enqueue where it is the longer) and on the device alone
+   (``graph_ms``: a CUDA graph of captured launches), beside its plain version, its bound (``bound``)
    and, where one PyTorch call computes the same function, that call.
    The launch path's host cost per call is printed too;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
@@ -40,8 +41,9 @@ Phases; any failure ends with a traceback and a non-zero exit:
    oracle ``gcn_forward_cpu``;
 5. GCN training at the same width on the RMAT graph (``bench.py``'s
    ``gcn_train_f32``/``gcn_train_bf16`` rows): the first step's loss and
-   gradients against the same step on ``impl="xla"``, 4 segment-sum, 0
-   SDDMM and 4 K row-gather launches per step (K bands), the step time;
+   gradients against the same step on ``impl="xla"``, 4 segment-sum (all
+   weighted), 0 SDDMM and 4 K row-gather launches per step (K bands), the
+   step time;
    then ER-2048 trained on a teacher's labels until the loss falls below
    0.7 of its first value;
 6. the SpMM weight gradient (the SDDMM kernel), ``sddmm`` in both edge
@@ -374,16 +376,19 @@ def phase_kernels(g, hg_big, device):
     err2, t2 = 0.0, None
     for F in (F_HID, F_OUT):
         for dtype in (torch.float32, torch.bfloat16):
-            msgs = band_messages(layout, dev, F, dtype, rng, device)
+            msgs, w = band_messages(layout, dev, F, dtype, rng, device)
             err, t, plain_ms, bnd, lib = check_banded_sum(
                 f"rmat{SCALE} F={F} {str(dtype)[6:]}", layout, dev, msgs,
-                device)
+                device, weights=w)
             err2 = max(err2, err)
             if F == F_HID and dtype == torch.float32:
                 t2 = (t, plain_ms, bnd, lib)
     # the streams of the last case above, made to require grad
     refuses_grad("banded_segment_sum", lambda *rg: k2.banded_segment_sum(
         dev["bounds"], dev["offs2d"], rg), *msgs)
+    refuses_grad("banded_segment_sum's weights",
+                 lambda *rg: k2.banded_segment_sum(
+                     dev["bounds"], dev["offs2d"], msgs, weights=rg), *w)
 
     # one row holds every edge (n - 1 = 99,999 of them, over 4 bands), so
     # it spans hundreds of walkers; and odd widths take the scalar path.
@@ -405,18 +410,19 @@ def phase_kernels(g, hg_big, device):
     lay_s = pull_layout(from_edges(np.arange(1, n), np.zeros(n - 1, np.int64),
                                    num_nodes=n))
     dev_s = lay_s.dev(device)
-    for F, dtype in ((1, torch.float32), (33, torch.bfloat16),
-                     (F_HID, torch.float32)):
-        msgs = band_messages(lay_s, dev_s, F, dtype, rng, device)
+    for F, dtype, weighted in ((1, torch.float32, False),
+                               (33, torch.bfloat16, True),
+                               (F_HID, torch.float32, True)):
+        msgs, w = band_messages(lay_s, dev_s, F, dtype, rng, device)
         err2 = max(err2, check_banded_sum(
             f"star n={n} F={F} {str(dtype)[6:]}", lay_s, dev_s,
-            msgs, device)[0])
+            msgs, device, weights=w if weighted else None)[0])
     del lay_s, dev_s
 
     lay_b = pull_layout(hg_big)
     dev_b = lay_b.dev(device)
     for dtype in (torch.float32, torch.bfloat16):
-        msgs = band_messages(lay_b, dev_b, F_OUT, dtype, rng, device)
+        msgs, _ = band_messages(lay_b, dev_b, F_OUT, dtype, rng, device)
         err2 = max(err2, check_banded_sum(
             f"rmat{MEMORY_SCALE} F={F_OUT} {str(dtype)[6:]}", lay_b, dev_b,
             msgs, device)[0])
@@ -651,9 +657,11 @@ def check_segment_reduce(g, hg_big, rng, device):
     return kernel_stats(err1, *t1)
 
 
-def band_messages(layout, dev, F, dtype, rng, device) -> list:
-    """The K weighted band gathers of a random ``[n_pad, F]`` x, as the
-    banded SpMM makes them."""
+def band_messages(layout, dev, F, dtype, rng, device) -> tuple:
+    """The K band gathers of a random ``[n_pad, F]`` x, as the banded SpMM
+    makes them, and the layout's per-slot edge weights that kernel 2
+    scales them by, cast to the messages' dtype as its wrapper casts
+    them."""
     import torch
 
     x = torch.from_numpy(rng.rand(layout.n_pad, F).astype(np.float32)
@@ -661,27 +669,29 @@ def band_messages(layout, dev, F, dtype, rng, device) -> list:
     msgs = []
     for k in range(layout.K):
         lo = k * layout.band_rows
-        xg = torch.index_select(x[lo: lo + layout.band_rows], 0,
-                                dev["ids"][k])
-        msgs.append(xg * dev["weights"][k][:, None].to(dtype))
-    return msgs
+        msgs.append(torch.index_select(x[lo: lo + layout.band_rows], 0,
+                                       dev["ids"][k]))
+    return msgs, [w.to(dtype) for w in dev["weights"]]
 
 
-def banded_sum_agrees(label, dev, msgs, device) -> tuple:
-    """Kernel 2 on a layout's cached schedule within SUM_TOL of the plain
-    version, two launches bitwise equal, bitwise the plain emulation of
-    its schedule; returns (max abs error, its limit)."""
+def banded_sum_agrees(label, dev, msgs, device, weights=None) -> tuple:
+    """Kernel 2 on a layout's cached schedule, with the per-slot
+    ``weights`` where given, within SUM_TOL of the plain version, two
+    launches bitwise equal, bitwise the plain emulation of its schedule;
+    returns (max abs error, its limit)."""
     import torch
 
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
 
     args = (dev["bounds"], dev["offs2d"], msgs)
     prefix = dev["row_prefix"]
-    got = k2.banded_segment_sum(*args, row_prefix=prefix)
-    again = k2.banded_segment_sum(*args, row_prefix=prefix)
-    want = k2.banded_segment_sum_plain(*args)
-    emulated = k2.banded_segment_sum_scheduled_plain(*args,
-                                                     row_prefix=prefix)
+    before = k2.weighted_launches
+    got = k2.banded_segment_sum(*args, row_prefix=prefix, weights=weights)
+    again = k2.banded_segment_sum(*args, row_prefix=prefix, weights=weights)
+    assert k2.weighted_launches - before == (2 if weights else 0), label
+    want = k2.banded_segment_sum_plain(*args, weights=weights)
+    emulated = k2.banded_segment_sum_scheduled_plain(
+        *args, row_prefix=prefix, weights=weights)
     torch.cuda.synchronize(device)
     err = float((got - want).abs().max())
     limit = SUM_TOL * float(want.abs().max())
@@ -691,34 +701,42 @@ def banded_sum_agrees(label, dev, msgs, device) -> tuple:
     return err, limit
 
 
-def check_banded_sum(label, layout, dev, msgs, device):
-    """Kernel 2 on the layout's cached schedule: within SUM_TOL of the
-    plain version, two launches bitwise equal, bitwise equal to the plain
-    emulation of its schedule; its time against its bound, the plain
-    version and ``index_add_`` over the concatenated real slots."""
+def check_banded_sum(label, layout, dev, msgs, device, weights=None):
+    """Kernel 2 on the layout's cached schedule, weighted where
+    ``weights`` are given: within SUM_TOL of the plain version, two
+    launches bitwise equal, bitwise equal to the plain emulation of its
+    schedule; its time against its bound (the weights' bytes and products
+    counted), the plain version and ``index_add_`` over the concatenated
+    real slots."""
     import torch
 
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
 
-    err, limit = banded_sum_agrees(label, dev, msgs, device)
+    err, limit = banded_sum_agrees(label, dev, msgs, device, weights)
     args = (dev["bounds"], dev["offs2d"], msgs)
     prefix = dev["row_prefix"]
     F, elem = msgs[0].shape[1], msgs[0].element_size()
     real = [int(b) for b in layout.bounds[:, -1]]
-    bnd = bound(sum(real) * F * elem + layout.n_pad * F * 4
+    weighted = weights is not None
+    bnd = bound(sum(real) * (F + weighted) * elem + layout.n_pad * F * 4
                 + layout.K * layout.n_pad * 4 + (layout.n_pad + 1) * 4,
-                ops=sum(real) * F)
-    t = timed(lambda: k2.banded_segment_sum(*args, row_prefix=prefix), device)
+                ops=sum(real) * F * (1 + weighted))
+    t = timed(lambda: k2.banded_segment_sum(*args, row_prefix=prefix,
+                                            weights=weights), device)
     ms = t["ms"]
-    plain_ms = cuda_ms(lambda: k2.banded_segment_sum_plain(*args), device,
-                       windows=3)
-    # index_add_ wants one dtype: bf16 messages go in as float32 copies,
-    # made outside the timed region
+    plain_ms = cuda_ms(lambda: k2.banded_segment_sum_plain(
+        *args, weights=weights), device, windows=3)
+    # index_add_ wants one dtype and takes no per-row weights: it adds
+    # float32 copies of the messages, weighted, made outside the timed
+    # region
     seg = torch.cat([s[:n] for s, n in zip(dev["seg"], real)]).long()
-    flat = torch.cat([m[:n] for m, n in zip(msgs, real)]).float()
+    flat = torch.cat([(m[:n] * w[:n, None]) if weighted else m[:n]
+                      for m, w, n in zip(msgs, weights or msgs, real)]
+                     ).float()
     lib = library("Tensor.index_add_", lambda: torch.zeros(
         layout.n_pad, F, device=device).index_add_(0, seg, flat), device)
-    log(f"# banded_segment_sum {label} K={layout.K}: err {err:.3g} (bound "
+    log(f"# banded_segment_sum {label} K={layout.K}"
+        f"{' weighted' if weighted else ''}: err {err:.3g} (bound "
         f"{limit:.3g}), two launches and the emulated schedule bitwise; "
         f"kernel {ms:.4f} ms ({pct(ms, bnd)}, {bnd['bound_ms']:.4f} ms), "
         f"device {t['device_ms']:.4f} ms ({t['device_how']}); plain "
@@ -1279,14 +1297,16 @@ def phase_train(g, device):
     opt = gcn_init_opt(params)
 
     def step(impl, mdt=None):
-        before = (k2.launches, k2.sddmm_launches, kg.launches)
+        before = (k2.launches, k2.sddmm_launches, kg.launches,
+                  k2.weighted_launches)
         out = gcn_train_step(params, opt, g, norm, x, (labels, mask), 1e-2,
                              impl=impl, message_dtype=mdt)
         if impl == "banded":  # 2 forward sums, 2 dx sums, no SDDMM; K
-            # band gathers before each sum
+            # band gathers before each sum; every sum weighted
             counts = (k2.launches - before[0], k2.sddmm_launches - before[1],
-                      kg.launches - before[2])
-            assert counts == (4, 0, 4 * K), counts
+                      kg.launches - before[2],
+                      k2.weighted_launches - before[3])
+            assert counts == (4, 0, 4 * K, 4), counts
         return out
 
     # from zero momentum the new momentum is the gradient itself
@@ -2490,8 +2510,9 @@ def phase_arxiv(device):
 def hold_gcn_kernels(label, gs, dims, device):
     """The segment sum and the row gather on the GCN's layouts of ``gs``
     (pull for the forward, push for the backward; one layout serves every
-    width up to 128) at each of ``dims[1:]``'s widths, float32: the sum
-    within SUM_TOL of its plain version, the gather bitwise."""
+    width up to 128) at each of ``dims[1:]``'s widths, float32: the sum,
+    weighted as the GCN calls it, within SUM_TOL of its plain version, the
+    gather bitwise."""
     import torch
 
     from mini_tpu_torch.graph.banded import get_layout
@@ -2503,11 +2524,12 @@ def hold_gcn_kernels(label, gs, dims, device):
         layout = get_layout(gs, direction, row_bytes=128 * 4)
         dev = layout.dev(device)
         for F in sorted(set(dims[1:])):
-            msgs = band_messages(layout, dev, F, torch.float32, rng, device)
+            msgs, w = band_messages(layout, dev, F, torch.float32, rng,
+                                    device)
             err, limit = banded_sum_agrees(f"{label} {direction} F={F}",
-                                           dev, msgs, device)
+                                           dev, msgs, device, weights=w)
             worst = max(worst, err / limit if limit else 0.0)
-            del msgs
+            del msgs, w
             x = torch.from_numpy(rng.randn(layout.n_pad, F).astype(
                 np.float32)).to(device)
             for k in range(layout.K):
@@ -2515,10 +2537,11 @@ def hold_gcn_kernels(label, gs, dims, device):
                 assert torch.equal(kg.gather_rows(band, dev["ids"][k]),
                                    kg.gather_rows_plain(band, dev["ids"][k])
                                    ), (label, direction, F, k)
-    log(f"# {label}: banded_segment_sum on the pull and push layouts (K="
-        f"{layout.K}) at F={sorted(set(dims[1:]))} within SUM_TOL of plain "
-        f"(worst {worst:.3g} of the bound), two launches and the emulated "
-        f"schedule bitwise; gather_rows bitwise index_select on every band")
+    log(f"# {label}: weighted banded_segment_sum on the pull and push "
+        f"layouts (K={layout.K}) at F={sorted(set(dims[1:]))} within "
+        f"SUM_TOL of plain (worst {worst:.3g} of the bound), two launches "
+        f"and the emulated schedule bitwise; gather_rows bitwise "
+        f"index_select on every band")
 
 
 def phase_entry(device):
@@ -2607,7 +2630,7 @@ def parallel_rank(kind=None) -> dict:
     hub = int(np.argmax(hg.out_degrees))
     s, n = shards.shard, hg.n
     lines, times = [], []
-    total = {name: 0 for name in KERNELS}
+    total = {name: 0 for name in counters()}
 
     def counted(fn, into=None):
         """``fn()``, its launches added to this path's counts (and to
@@ -3038,11 +3061,15 @@ KERNELS = {
 
 
 def counters() -> dict:
-    """kernel -> (its wrapper module, the name of its launch counter)."""
+    """kernel -> (its wrapper module, the name of its launch counter), and
+    ``banded_segment_sum.weighted``, kernel 2's launches that scaled by
+    weights."""
     import importlib
 
+    refs = {name: (m, attr) for name, (m, attr, _, _) in KERNELS.items()}
+    refs["banded_segment_sum.weighted"] = ("spmm_banded", "weighted_launches")
     return {name: (importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}"),
-                   attr) for name, (m, attr, _, _) in KERNELS.items()}
+                   attr) for name, (m, attr) in refs.items()}
 
 
 def drive(path: str, fn, *args) -> dict:

@@ -1,9 +1,16 @@
 // Banded segment sum, the core of every sum-SpMM:
-//   out[v, :] = sum_k sum_{j in [offs2d[t,k,r], next)} msgs[k][j, :]
+//   out[v, :] = sum_k sum_{j in [offs2d[t,k,r], next)} w[k][j] * msgs[k][j, :]
 // for v = 128 t + r, where next = offs2d[t,k,r+1], or bounds[k,t+1] for
 // r = 127.  K segment-sorted message streams msgs[k] ([mk_pad, F], float32
 // or bfloat16) fold into one float32 output [n_tiles * 128, F].  Pad slots
-// past a band's last segment end are never read.
+// past a band's last segment end are never read.  The weights are
+// optional: without them w[k][j] = 1 and nothing is multiplied.  With
+// them, w[k] is [mk_pad] of the messages' type, or [mk_pad, H] for H heads
+// (GAT), column c of a message taking head c / (F / H)'s weight.  A
+// weighted message is formed as _weigh in ops/spmm.py forms it: one
+// product in float32 (__fmul_rn, never contracted into an FMA) rounded to
+// the message's type, then added in float32, so the sum has the bits of
+// the unweighted sum of _weigh's weighted copy, which is never written.
 //
 // Replaces the TPU kernel mini_tpu/ops/pallas/spmm_banded.py,
 // banded_segment_sum.  The TPU version builds a one-hot "staircase" per
@@ -17,7 +24,10 @@
 // and added once: 0.25 adds per byte in float32 (0.5 in bf16), far below
 // the ~295 operations per byte at which the card stops being memory-bound.
 // At rmat16, K = 3, F = 128 float32 it reads 1.074 GB of messages and
-// writes 33.6 MB: 0.331 ms at 3.35 TB/s.
+// writes 33.6 MB: 0.331 ms at 3.35 TB/s.  The weights add 4 bytes a slot
+// (0.8% at F = 128) and one multiply a message element.  Taking them here
+// saves a read and a write of every stream: multiplying first writes a
+// weighted copy that this kernel then reads.
 //
 // Why the first schedule missed that bound.  A block owned one 128-row
 // tile and each thread one output element, walking its row's segments one
@@ -51,7 +61,15 @@
 //   bf16): it computes the batch's slot addresses (segments are
 //   contiguous, so they are known ahead), starts the loads, then adds
 //   them into its row's float32 accumulators, flushing at each row
-//   change.
+//   change.  With weights (a kernel of its own, the same walker), each
+//   slot's weight load is issued in the same batch, with the slot's
+//   address: the walker's lanes read the same address (one load serves
+//   them all), or, with heads, each lane its head's column.  The vector
+//   form needs a head's columns to be whole lane vectors (F / H a
+//   multiple of V); otherwise the wrapper takes the scalar form, one
+//   weight an element, on the chunks and fix-up groups of the vector
+//   form, so the order of additions stays that of the same messages
+//   without weights.
 // - A row that lies inside one chunk is written straight to out.  A row
 //   that crosses a chunk edge leaves its partial sum in a float32 carry
 //   buffer [n_walkers, 2, F]: side 0 for the part of a row that started
@@ -71,9 +89,11 @@
 // bound; this one 0.4308 ms, 77%, and 61% in bf16.  Not built: a ring of
 // shared-memory stages filled by cp.async.bulk / TMA.  The register batch
 // keeps 4 x 512 bytes in flight per warp at F = 128 float32, which
-// already reaches three quarters of the bound; the
-// ring is the next step for bf16 and narrow rows, with fusing the band
-// gather x[band][ids] * w into this kernel (which changes its function).
+// already reaches three quarters of the bound; the ring is the next step
+// for bf16 and narrow rows.  Not fused: the band gather x[band][ids].
+// Reading x's rows here in place of the gathered streams changes the bytes
+// the kernel needs (a table that fits in L2 is read once, not once an
+// edge), so its roofline would need another count.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,6 +170,36 @@ __device__ __forceinline__ void accumulate(float (&a)[1], float r) {
 }
 __device__ __forceinline__ void accumulate(float (&a)[1], __nv_bfloat16 r) {
   a[0] += __bfloat162float(r);
+}
+
+// The same with each element first scaled by the slot's weight w (already
+// of the message's type): the float32 product, never contracted into an
+// FMA, rounded to the message's type (nearest even; exact in float32).
+__device__ __forceinline__ float weigh_bf16(float x, float w) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(x, w)));
+}
+__device__ __forceinline__ void accumulate(float (&a)[4], const float4& r,
+                                           float w) {
+  a[0] += __fmul_rn(r.x, w);
+  a[1] += __fmul_rn(r.y, w);
+  a[2] += __fmul_rn(r.z, w);
+  a[3] += __fmul_rn(r.w, w);
+}
+__device__ __forceinline__ void accumulate(float (&a)[8], const uint4& r,
+                                           float w) {
+  const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a[2 * i] += weigh_bf16(__uint_as_float(u[i] << 16), w);
+    a[2 * i + 1] += weigh_bf16(__uint_as_float(u[i] & 0xffff0000u), w);
+  }
+}
+__device__ __forceinline__ void accumulate(float (&a)[1], float r, float w) {
+  a[0] += __fmul_rn(r, w);
+}
+__device__ __forceinline__ void accumulate(float (&a)[1], __nv_bfloat16 r,
+                                           float w) {
+  a[0] += weigh_bf16(__bfloat162float(r), w);
 }
 
 template <int V>
@@ -236,12 +286,23 @@ __device__ __forceinline__ void flush(const Layout& L, float* out,
 template <typename T>
 constexpr int kBatch = sizeof(T) == 4 ? 4 : 8;
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kSumThreads)
-banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
-                          const Layout L, float* __restrict__ out,
-                          float* __restrict__ carry, int F, int G, int chunk,
-                          int n_walkers) {
+// A walker of the segment sum (the two kernels below).  kWeighted: scale
+// each message by its slot's weight, wts.p[k][j * H + head], head = c0 /
+// head_cols for this lane's V columns (which lie in one head); without it
+// wts, H and head_cols are not read.  The weight load is issued with the
+// slot's address, so no pointer is kept per slot: in float32 that holds
+// the walker to 64 registers and 4 resident blocks (swept on the H100 at
+// rmat16, K = 3, F = 128: 0.422 ms, against 0.484 with the weights loaded
+// beside the messages and 0.412 without weights; at an ogbn-arxiv-size
+// graph's F = 256 1.170 ms, 1.222, 1.113).  In bf16 it costs 4% (0.306 ms,
+// 0.293, 0.259).
+template <typename T, int V, bool kWeighted>
+__device__ __forceinline__ void walk(const StreamPtrs& msgs,
+                                     const StreamPtrs& wts, const Layout& L,
+                                     float* __restrict__ out,
+                                     float* __restrict__ carry, int F, int G,
+                                     int chunk, int n_walkers, int H,
+                                     int head_cols) {
   using Raw = typename Vec<T, V>::raw;
   const int walker = blockIdx.x * (kSumThreads / G) + threadIdx.x / G;
   const int c0 = (blockIdx.y * G + threadIdx.x % G) * V;  // first column
@@ -252,6 +313,7 @@ banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
   const long long stop = start + chunk;
   const int end = static_cast<int>(stop < total ? stop : total);
   const bool lane_on = c0 < F;
+  const int head = kWeighted && lane_on ? c0 / head_cols : 0;
 
   // the row that holds slot `start`, then its band and slot
   Cursor c;
@@ -272,6 +334,7 @@ banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
   for (int base = static_cast<int>(start); base < end; base += B) {
     const int n = min(B, end - base);
     const Raw* src[B];
+    T wv[B];
     int rows[B];
 #pragma unroll
     for (int u = 0; u < B; ++u) {
@@ -280,6 +343,10 @@ banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
         src[u] = reinterpret_cast<const Raw*>(
             static_cast<const T*>(msgs.p[c.k]) +
             static_cast<size_t>(c.j) * F + c0);
+        if constexpr (kWeighted)
+          if (lane_on)
+            wv[u] = __ldg(static_cast<const T*>(wts.p[c.k]) +
+                          static_cast<size_t>(c.j) * H + head);
         rows[u] = c.v;
         ++c.j;
       }
@@ -298,11 +365,36 @@ banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
 #pragma unroll
           for (int i = 0; i < V; ++i) acc[i] = 0.0f;
         }
-        if (lane_on) accumulate(acc, val[u]);
+        if (lane_on) {
+          if constexpr (kWeighted) accumulate(acc, val[u], to_f32(wv[u]));
+          else accumulate(acc, val[u]);
+        }
       }
     }
   }
   if (lane_on) flush<V>(L, out, carry, row, acc, start, stop, walker, F, c0);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSumThreads)
+banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
+                          const Layout L, float* __restrict__ out,
+                          float* __restrict__ carry, int F, int G, int chunk,
+                          int n_walkers) {
+  walk<T, V, false>(msgs, msgs, L, out, carry, F, G, chunk, n_walkers, 1, F);
+}
+
+// The weighted walkers, held to 4 resident blocks in float32 (64
+// registers) and 2 in bf16 (128).
+template <typename T, int V>
+__global__ void __launch_bounds__(kSumThreads, sizeof(T) == 4 ? 4 : 2)
+banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
+                          const __grid_constant__ StreamPtrs wts,
+                          const Layout L, float* __restrict__ out,
+                          float* __restrict__ carry, int F, int G, int chunk,
+                          int n_walkers, int H, int head_cols) {
+  walk<T, V, true>(msgs, wts, L, out, carry, F, G, chunk, n_walkers, H,
+                   head_cols);
 }
 
 // The rows the walkers did not write: a row with no slot gets zeros; a row
@@ -372,16 +464,21 @@ banded_fixup_kernel(const int* __restrict__ prefix,
   }
 }
 
+// wts: the streams' weights, or null pointers for none.
 template <typename T, int V>
-void launch_sum(const StreamPtrs& ptrs, const Layout& L, float* out,
-                float* carry, int F, int G, int chunk, int n_walkers,
-                int fix_lanes, cudaStream_t s) {
+void launch_sum(const StreamPtrs& ptrs, const StreamPtrs& wts, int H,
+                const Layout& L, float* out, float* carry, int F, int G,
+                int chunk, int n_walkers, int fix_lanes, cudaStream_t s) {
   const int per_block = kSumThreads / G;
   if (n_walkers > 0) {
     const dim3 grid((n_walkers + per_block - 1) / per_block,
                     (F + G * V - 1) / (G * V));
-    banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
-        ptrs, L, out, carry, F, G, chunk, n_walkers);
+    if (wts.p[0] != nullptr)
+      banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+          ptrs, wts, L, out, carry, F, G, chunk, n_walkers, H, F / H);
+    else
+      banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+          ptrs, L, out, carry, F, G, chunk, n_walkers);
   }
   const int n_rows = L.n_tiles * kRowTile;
   const int rows_blocks = (n_rows + kFixWarps - 1) / kFixWarps;
@@ -672,36 +769,53 @@ extern "C" int banded_max_bands() { return kMaxBands; }
 // vector: nonzero when F * element size is a multiple of 16 and every
 // stream is 16-byte aligned.  lanes, fix_lanes: a walker's lanes and the
 // fix-up's lanes per row, powers of two up to 32 (the wrapper's
-// kernel_plan).  Two launches: the walkers, then the fix-up.  Returns
-// cudaGetLastError() after them (0 on success), or cudaErrorInvalidValue
-// for bad arguments.
+// kernel_plan).  wt_ptrs: null for no weights, else a host array of K
+// device pointers to the streams' weights, [mk_pad] (heads 1) or [mk_pad,
+// heads] of the messages' type; heads divides F and, on the vector path,
+// F / heads is a multiple of the lane's 16 bytes of columns.  Two
+// launches: the walkers, then the fix-up.  Returns cudaGetLastError()
+// after them (0 on success), or cudaErrorInvalidValue for bad arguments.
 extern "C" int banded_segment_sum_launch(
     const void* const* msg_ptrs, int K, const void* bounds,
     const void* offs2d, const void* prefix, void* out, void* carry,
     int n_tiles, int F, int dtype, int vector, int lanes, int chunk,
-    int n_walkers, int fix_lanes, void* stream) {
+    int n_walkers, int fix_lanes, const void* const* wt_ptrs, int heads,
+    void* stream) {
   const auto lanes_ok = [](int x) {
     return x >= 1 && x <= kWarp && (x & (x - 1)) == 0;
   };
+  const int V = vector ? (dtype == DT_FLOAT32 ? 4 : 8) : 1;
   if (K < 1 || K > kMaxBands || n_tiles < 0 || F < 1 || chunk < 1 ||
-      n_walkers < 0 || !lanes_ok(lanes) || !lanes_ok(fix_lanes))
+      n_walkers < 0 || !lanes_ok(lanes) || !lanes_ok(fix_lanes) ||
+      heads < 1 || F % heads || (F / heads) % V)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
-  StreamPtrs ptrs = {};
-  for (int k = 0; k < K; ++k) ptrs.p[k] = msg_ptrs[k];
+  StreamPtrs ptrs = {}, wts = {};
+  for (int k = 0; k < K; ++k) {
+    ptrs.p[k] = msg_ptrs[k];
+    if (wt_ptrs != nullptr) {
+      if (wt_ptrs[k] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      wts.p[k] = wt_ptrs[k];
+    }
+  }
   const Layout L = {static_cast<const int*>(bounds),
                     static_cast<const int*>(offs2d),
                     static_cast<const int*>(prefix), K, n_tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   float* c = static_cast<float*>(carry);
-  const int G = lanes, C = chunk, W = n_walkers, FL = fix_lanes;
+  const int G = lanes, C = chunk, W = n_walkers, FL = fix_lanes, H = heads;
   if (dtype == DT_FLOAT32) {
-    if (vector) launch_sum<float, 4>(ptrs, L, o, c, F, G, C, W, FL, s);
-    else launch_sum<float, 1>(ptrs, L, o, c, F, G, C, W, FL, s);
+    if (vector)
+      launch_sum<float, 4>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
+    else
+      launch_sum<float, 1>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
   } else if (dtype == DT_BFLOAT16) {
-    if (vector) launch_sum<__nv_bfloat16, 8>(ptrs, L, o, c, F, G, C, W, FL, s);
-    else launch_sum<__nv_bfloat16, 1>(ptrs, L, o, c, F, G, C, W, FL, s);
+    if (vector)
+      launch_sum<__nv_bfloat16, 8>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
+    else
+      launch_sum<__nv_bfloat16, 1>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

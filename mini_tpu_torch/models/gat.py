@@ -104,9 +104,10 @@ def _gat_layer_banded(
     column never enters a score), the dst scores expanded by the band's
     segment ids, the unnormalized weight ``w = exp(LRelu(sc + ed) -
     LRelu(gmax + ed))`` (``gmax`` the global max of the source scores, an
-    exact stabilizer because LeakyReLU is monotone), and the messages
-    ``xg * w`` per head block.  One ``banded_segment_sum`` folds them; the
-    ones column's sum is each head's denominator.
+    exact stabilizer because LeakyReLU is monotone).  One
+    ``banded_segment_sum`` folds the messages ``xg * w`` per head block,
+    weighing them as it adds them; the ones column's sum is each head's
+    denominator.
 
     Returns the per-head normalized outputs and the residuals of the
     backward: the per-band ``w`` and LeakyReLU sign bits and the ``[n_pad,
@@ -118,8 +119,8 @@ def _gat_layer_banded(
     F = H * d_pad
     layout = get_layout(g, "pull", row_bytes=F * 4)
 
-    # float32 through the gather, so the scores are float32; the
-    # message_dtype cast comes with the weight multiply
+    # float32 through the gather, so the scores are float32; the messages
+    # are cast to message_dtype after it, and weighted in the kernel
     hw_cat = _concat_heads(hws, d, d_pad, ones=True)
     A = hw_cat.new_zeros(F, H)
     for hd in range(H):
@@ -131,7 +132,6 @@ def _gat_layer_banded(
     msgs, w_bands, pos_bands = [], [], []
     for k in range(layout.K):
         xg = gather_rows(_band(hw_cat, layout, k), dev["ids"][k])
-        mk = xg.shape[0]
         sc = torch.matmul(xg, A)  # [mk, H]
         ed = torch.index_select(s_dst, 0, dev["seg"][k])
         e = F_.leaky_relu(sc + ed, negative_slope)
@@ -139,13 +139,10 @@ def _gat_layer_banded(
         w = torch.where(dev["valid"][k][:, None], torch.exp(e - bound), 0.0)
         w_bands.append(w)
         pos_bands.append(sc + ed > 0)  # LeakyReLU' sign bits
-        if message_dtype is not None:
-            xg = xg.to(message_dtype)
-        msgs.append((xg.reshape(mk, H, d_pad)
-                     * w[:, :, None].to(xg.dtype)).reshape(mk, F))
+        msgs.append(xg if message_dtype is None else xg.to(message_dtype))
     out = banded_segment_sum(dev["bounds"], dev["offs2d"], msgs,
                              precision="split", edge_chunk=layout.edge_chunk,
-                             row_prefix=dev["row_prefix"])
+                             row_prefix=dev["row_prefix"], weights=w_bands)
     heads, denoms = [], []
     for hd in range(H):
         denom = out[:, hd * d_pad + d].clamp(min=1e-30)
@@ -243,8 +240,8 @@ class _GatBandedLayer(torch.autograd.Function):
         ds_src = banded_heads_segment_sum(layout_b, g_push)
 
         go_sd = Q if mdt is None else Q.to(mdt)
-        gx = _apply_banded(go_sd, layout_b, w_push, "split",
-                           heads=H).to(torch.float32)
+        gx = _apply_banded(go_sd, layout_b, w_push,
+                           "split").to(torch.float32)
         g_hws = [gx[:, h * d_pad: h * d_pad + d] for h in range(H)]
         zeros_a = [torch.zeros(s, dtype=t, device=gx.device)
                    for s, t in ctx.a_like]

@@ -3,8 +3,15 @@ gradient): the CUDA kernels of ``csrc/spmm_banded.cu`` and their plain
 torch versions.
 
 ``banded_segment_sum``:
-``out[v] = sum_k sum msgs[k][offs2d[t,k,r] : next]`` for ``v = 128 t + r``,
-where ``next`` is ``offs2d[t,k,r+1]``, or ``bounds[k,t+1]`` for ``r = 127``.
+``out[v] = sum_k sum_j w[k][j] msgs[k][j]`` over the slots ``j`` in
+``[offs2d[t,k,r], next)`` for ``v = 128 t + r``, where ``next`` is
+``offs2d[t,k,r+1]``, or ``bounds[k,t+1]`` for ``r = 127``.  The weights
+are optional (``weights=None``: ``w = 1``, nothing multiplied): K
+per-slot tensors ``[mk_pad]``, or ``[mk_pad, H]`` whose column ``h``
+scales columns ``[h F/H, (h+1) F/H)`` (GAT's heads).  A weighted message
+is ``fl(m * w)``, the product in float32 rounded to the messages' dtype
+with ``w`` first cast to it, the bits of ``ops.spmm._weigh``; the kernel
+forms it in registers and never writes it.
 
 ``banded_sddmm``: ``dw[base_k + j] = <y[v], msgs[k][j]>`` for every slot
 ``j`` of band ``k`` in row ``v``'s segment; the flat float32 result has
@@ -53,6 +60,7 @@ MIN_CHUNK = 128  # fewest slots of the virtual order per walker
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the last reset (see chip_smoke.py), per wrapper
 launches = 0  # banded_segment_sum
+weighted_launches = 0  # those of them that scaled by weights
 sddmm_launches = 0  # banded_sddmm
 # the bound C entries and the kernel's band limit, set at the first launch
 _sum_launch = _sddmm_launch = None
@@ -86,6 +94,36 @@ def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
     if precision == "fast" and dtype == torch.float32:
         msgs = [m.to(torch.bfloat16) for m in msgs]
     return msgs
+
+
+def _prepare_weights(msgs, weights) -> tuple:
+    """Check the per-slot weights against the prepared streams; return
+    them cast to the messages' dtype, and the head count (1 without
+    weights)."""
+    if weights is None:
+        return None, 1
+    weights = list(weights)
+    F = msgs[0].shape[1]
+    ndim = weights[0].ndim if weights else 0
+    heads = weights[0].shape[1] if ndim == 2 else 1
+    if (len(weights) != len(msgs) or ndim not in (1, 2) or heads < 1
+            or F % heads):
+        raise ValueError(f"weights must be {len(msgs)} tensors [mk_pad] or "
+                         f"[mk_pad, H], H dividing F={F}")
+    for w, m in zip(weights, msgs):
+        if w.shape != (m.shape[0], heads)[:ndim] or not w.is_floating_point():
+            raise ValueError(f"weights {tuple(w.shape)} for a stream of "
+                             f"{m.shape[0]} slots and {heads} heads")
+    return [w.to(msgs[0].dtype) for w in weights], heads
+
+
+def _weighted(m, w, heads) -> torch.Tensor:
+    """``m`` times its slots' weights as the kernel forms them: the product
+    in float32, rounded to ``m``'s dtype (``w`` already of that dtype)."""
+    n, F = m.shape
+    prod = (m.float().reshape(n, heads, F // heads)
+            * w.float().reshape(n, heads, 1))
+    return prod.reshape(n, F).to(m.dtype)
 
 
 def _prepare_y(offs2d, msgs, y, precision, heads=1) -> torch.Tensor:
@@ -138,10 +176,12 @@ def _bind(K: int) -> None:
     if _sum_launch is None:
         P, I, V = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
         # (msg_ptrs, K, bounds, offs2d, prefix, out, carry, n_tiles, F,
-        #  dtype, vector, lanes, chunk, n_walkers, fix_lanes, stream)
+        #  dtype, vector, lanes, chunk, n_walkers, fix_lanes, wt_ptrs,
+        #  heads, stream)
         _sum_launch = _build.bind(
             "spmm_banded", "banded_segment_sum_launch",
-            [ctypes.POINTER(P), I, V, V, V, V, V, I, I, I, I, I, I, I, I, V])
+            [ctypes.POINTER(P), I, V, V, V, V, V, I, I, I, I, I, I, I, I,
+             ctypes.POINTER(P), I, V])
         # (msg_ptrs, seg_ptrs, lens, K, bounds, y, out, n_tiles, F, H,
         #  msg_dtype, y_dtype, lanes, head_lanes, stream)
         _sddmm_launch = _build.bind(
@@ -160,17 +200,22 @@ def banded_segment_sum_plain(
     msgs: Sequence[torch.Tensor],
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
+    weights: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Plain torch version: per band, an ``index_add_`` of the stream's
-    messages into their segments' rows, accumulated in float64 and
-    rounded once, so it is a deterministic reference for the kernel."""
+    (weighted) messages into their segments' rows, accumulated in float64
+    and rounded once, so it is a deterministic reference for the kernel."""
     msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
+    weights, heads = _prepare_weights(msgs, weights)
     n_pad = offs2d.shape[0] * ROW_TILE
     out = torch.zeros(n_pad, msgs[0].shape[1], dtype=torch.float64,
                       device=msgs[0].device)
     for k, m in enumerate(msgs):
         seg = _segment_ids(bounds, offs2d, k)
-        out.index_add_(0, seg, m[: seg.numel()].double())
+        m = m[: seg.numel()]
+        if weights is not None:
+            m = _weighted(m, weights[k][: seg.numel()], heads)
+        out.index_add_(0, seg, m.double())
     return out.to(torch.float32)
 
 
@@ -196,7 +241,9 @@ def kernel_plan(F: int, element_size: int, vector: bool) -> tuple:
     elements off the vector path); its chunk is ``16 lanes`` slots, at
     least ``MIN_CHUNK``, enough walkers to fill the card whatever F.  The
     fix-up's lanes cover F in float32 vectors of 4 (or 1), and its warp's
-    ``32 / fix_lanes`` lane groups split a long row's carries."""
+    ``32 / fix_lanes`` lane groups split a long row's carries.  The chunk
+    and the fix-up's lanes fix the order of additions; weights never
+    change them (see :func:`segment_sum_cuda`)."""
     lanes = _lanes(F, 16 // element_size if vector else 1)
     return lanes, max(MIN_CHUNK, 16 * lanes), _lanes(F, 4 if vector else 1)
 
@@ -209,10 +256,12 @@ def banded_segment_sum_scheduled_plain(
     edge_chunk: int = EDGE_CHUNK,
     row_prefix: Optional[torch.Tensor] = None,
     chunk: Optional[int] = None,
+    weights: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The segment-sum kernel's schedule in plain torch: the same result as
     ``csrc/spmm_banded.cu`` bit for bit, for the CPU tests of the partition
-    and for the card's check of the kernel.
+    and for the card's check of the kernel.  With ``weights`` each slot's
+    message is first weighted as the kernel weighs it (module doc).
 
     Every real slot gets its place in the virtual order (row by row, band
     0 to K-1 in a row); chunk ``b`` holds places ``[b chunk, (b+1)
@@ -226,6 +275,7 @@ def banded_segment_sum_scheduled_plain(
     slot are 0.  ``chunk`` defaults to the kernel's (:func:`kernel_plan`).
     """
     msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
+    weights, heads = _prepare_weights(msgs, weights)
     _, kernel_chunk, fix_lanes = kernel_plan(
         msgs[0].shape[1], msgs[0].element_size(), _vector_ok(msgs))
     chunk = kernel_chunk if chunk is None else chunk
@@ -252,7 +302,8 @@ def banded_segment_sum_scheduled_plain(
         j = torch.arange(seg.numel(), device=device)
         place.append(prefix[seg] + before[seg, k] + j - starts[seg, k])
         rows.append(seg)
-        vals.append(m[: seg.numel()])
+        vals.append(m[: seg.numel()] if weights is None else _weighted(
+            m[: seg.numel()], weights[k][: seg.numel()], heads))
     order = torch.empty(total, dtype=torch.long, device=device)
     order[torch.cat(place)] = torch.arange(total, device=device)
     rows = torch.cat(rows)[order]
@@ -320,16 +371,21 @@ def segment_sum_cuda(
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
     row_prefix: Optional[torch.Tensor] = None,
+    weights: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Launch the segment-sum kernel on CUDA tensors (see module doc):
     the walkers and the fix-up.  ``row_prefix`` is the cached schedule;
-    without it this call builds it on the device.  ``name`` is the calling
-    wrapper's, for errors; the caller counts the launch."""
+    without it this call builds it on the device.  ``weights``: the
+    optional per-slot weights, cast here to the messages' dtype.  ``name``
+    is the calling wrapper's, for errors; the caller counts the launch."""
     device = msgs[0].device
-    refuse_grad(name, *msgs)
+    refuse_grad(name, *msgs, *(weights or ()))
     msgs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
                                              precision, edge_chunk)]
-    _check_cuda(bounds, offs2d, msgs, device)
+    weights, heads = _prepare_weights(msgs, weights)
+    if weights is not None:
+        weights = [w.contiguous() for w in weights]
+    _check_cuda(bounds, offs2d, [*msgs, *(weights or ())], device)
     bounds = bounds.contiguous()
     offs2d = offs2d.contiguous()
     n_tiles = offs2d.shape[0]
@@ -342,20 +398,27 @@ def segment_sum_cuda(
     row_prefix = row_prefix.contiguous()
     K = len(msgs)
     _bind(K)
-    F = msgs[0].shape[1]
+    F, elem = msgs[0].shape[1], msgs[0].element_size()
     vector = _vector_ok(msgs)
-    lanes, chunk, fix_lanes = kernel_plan(F, msgs[0].element_size(), vector)
+    lanes, chunk, fix_lanes = kernel_plan(F, elem, vector)
+    if vector and (F // heads) % (16 // elem):
+        # a head's columns end inside a lane's 16-byte vector: the scalar
+        # form, one weight an element, on the same chunks and fix-up
+        # groups, so the same order of additions as without weights
+        vector, lanes = False, kernel_plan(F, elem, False)[0]
     n_walkers = -(-sum(int(m.shape[0]) for m in msgs) // chunk)
     out = torch.empty(n_tiles * ROW_TILE, F, dtype=torch.float32,
                       device=device)
     carry = torch.empty(n_walkers * 2 * F, dtype=torch.float32,
                         device=device)
     ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
+    wt_ptrs = None if weights is None else (ctypes.c_void_p * K)(
+        *[w.data_ptr() for w in weights])
     rc = _sum_launch(
         ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), row_prefix.data_ptr(),
         out.data_ptr(), carry.data_ptr(), n_tiles, F,
         _DTYPE_CODE[msgs[0].dtype], int(vector), lanes, chunk, n_walkers,
-        fix_lanes, _build.stream(device.index),
+        fix_lanes, wt_ptrs, heads, _build.stream(device.index),
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -369,19 +432,22 @@ def banded_segment_sum(
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
     row_prefix: Optional[torch.Tensor] = None,
+    weights: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Sum K segment-sorted message streams into float32 ``[n_tiles*128,
-    F]`` rows (see module doc).  On CUDA tensors this launches
-    ``csrc/spmm_banded.cu`` with ``row_prefix`` as its schedule
+    """Sum K segment-sorted message streams, each message scaled by its
+    slot's weight where ``weights`` are given, into float32
+    ``[n_tiles*128, F]`` rows (see module doc).  On CUDA tensors this
+    launches ``csrc/spmm_banded.cu`` with ``row_prefix`` as its schedule
     (``BandedLayout.dev()["row_prefix"]``; built in the call when None);
     on CPU tensors it is the plain version, which needs no schedule."""
     if not _on_card(msgs, "banded_segment_sum"):
         return banded_segment_sum_plain(bounds, offs2d, msgs, precision,
-                                        edge_chunk)
+                                        edge_chunk, weights)
     out = segment_sum_cuda("banded_segment_sum", bounds, offs2d, msgs,
-                           precision, edge_chunk, row_prefix)
-    global launches
+                           precision, edge_chunk, row_prefix, weights)
+    global launches, weighted_launches
     launches += 1
+    weighted_launches += weights is not None
     return out
 
 

@@ -9,21 +9,25 @@ SpMM implementations:
 
 * ``banded`` (the default for a CUDA ``x``; ``pallas`` is an alias): K
   band gathers (the ``gather_rows`` kernel, ops/kernels/gather_rows.py) of
-  the weighted messages (graph/banded.py) folded per destination by the
-  ``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py).
+  the messages (graph/banded.py), folded per destination by the
+  ``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py), which scales
+  each message by its edge weight as it adds it: ``out[v] = sum_k sum_j
+  w[k][j] msgs[k][j]`` over v's slots, and no weighted copy of a stream
+  is written.
   Differentiable in ``x`` (the backward is the opposite-direction banded
   SpMM) and in the edge weights (the ``banded_sddmm`` kernel: ``dw[e] =
   <go[dst e], x[src e]>``), through one ``torch.autograd.Function``.  On
   CUDA a graph with no banded layout raises; nothing falls back.
   ``heads > 1`` is GAT's blockwise form: x is the head concat ``[n_pad,
   H d]``, the weights ``[m_pad, H]``, and head h's columns are scaled by
-  its own weight column, all heads in one set of gathers and one kernel
-  launch.
+  its own weight column (the kernel reads the ``[mk, H]`` weights), all
+  heads in one set of gathers and one kernel launch.
 * ``pallas_onehot``: one whole-graph gather, then the contiguous
   ``segment_sum`` kernel (ops/kernels/spmm_kernel.py), the JAX package's
   round-1 route, kept for comparison.  Not differentiable on CUDA.
-* ``xla`` (the name the JAX package gives it): one whole-graph gather and
-  a scatter-add in plain torch, the reference path.
+* ``xla`` (the name the JAX package gives it): one whole-graph gather,
+  the weight multiply (``_weigh``) and a scatter-add in plain torch, the
+  reference path.
 """
 
 from __future__ import annotations
@@ -134,17 +138,18 @@ def spmm(
     return segment_reduce(msgs, seg, g.n_pad, op, mask=mask[:, None])
 
 
-# -- banded path -------------------------------------------------------------
-
-
 def _weigh(xg, w, heads):
-    """Messages times their weights: ``[m]`` scalars, or ``[m, H]``
-    columns each scaling its head's block of ``xg``'s columns."""
+    """Messages times their weights (the ``xla`` path): ``[m]`` scalars,
+    or ``[m, H]`` columns each scaling its head's block of ``xg``'s
+    columns."""
     if heads == 1:
         return xg * w[:, None].to(xg.dtype)
     m, F = xg.shape
     return (xg.reshape(m, heads, F // heads)
             * w[:, :, None].to(xg.dtype)).reshape(m, F)
+
+
+# -- banded path -------------------------------------------------------------
 
 
 def _band(x, layout: BandedLayout, k):
@@ -166,17 +171,19 @@ def _gather_bands(x, layout: BandedLayout, precision):
     return bands
 
 
-def _apply_banded(x, layout: BandedLayout, w_list, precision, heads=1):
-    """K band gathers of the weighted messages, then the banded kernel.
-    ``w_list``: K per-band weight tensors in the layout's order (``[mk]``,
-    or ``[mk, H]`` per-head columns)."""
+def _apply_banded(x, layout: BandedLayout, w_list, precision):
+    """``out[v] = sum_k sum_j w[k][j] msgs[k][j]`` over v's slots: K band
+    gathers of the unweighted messages, then the banded kernel, which
+    weighs each message as it adds it.  ``w_list``: K per-band weight
+    tensors in the layout's order (``[mk]``, or ``[mk, H]`` per-head
+    columns, which fixes ``heads``)."""
     bands = _gather_bands(x, layout, precision)
-    msgs = [_weigh(xg, w, heads) for xg, w in zip(bands, w_list)]
     dev = layout.dev(x.device)
     with scope("spmm.banded_kernel"):
         return banded_segment_sum(
-            dev["bounds"], dev["offs2d"], msgs, precision=precision,
+            dev["bounds"], dev["offs2d"], bands, precision=precision,
             edge_chunk=layout.edge_chunk, row_prefix=dev["row_prefix"],
+            weights=w_list,
         )
 
 
@@ -229,7 +236,7 @@ class _BandedSpmm(torch.autograd.Function):
         ctx.w_dtype = ws[0].dtype
         # x, not its band gathers: those are the size of the edge stream
         ctx.save_for_backward(x, *ws[K:])
-        return _apply_banded(x, layout_f, ws[:K], precision, heads)
+        return _apply_banded(x, layout_f, ws[:K], precision)
 
     @staticmethod
     def backward(ctx, go):
@@ -245,8 +252,7 @@ class _BandedSpmm(torch.autograd.Function):
                     "backward banded SpMM needs the opposite-direction "
                     "layout: pass weights_banded_bwd with weights_banded"
                 )
-            gx = _apply_banded(go, layout_b, w_b, ctx.precision,
-                               ctx.heads).to(x.dtype)
+            gx = _apply_banded(go, layout_b, w_b, ctx.precision).to(x.dtype)
         dw_f = [None] * K
         if need_w:  # GCN's weights are constants: no SDDMM there
             dw_f = [d.to(ctx.w_dtype) for d in _weight_cotangent(

@@ -1,7 +1,8 @@
 """The banded segment sum's load-balanced schedule (csrc/spmm_banded.cu),
 on the CPU.
 
-The CUDA kernel cannot run here, so its partition is reached three ways:
+The CUDA kernel cannot run here, so its partition is reached three ways
+(with and without the per-slot weights it scales the messages by):
 ``banded_segment_sum_scheduled_plain`` (the schedule in plain torch) is
 held against the plain version and the JAX twin; a line-by-line Python
 transcription of the kernel's walker and fix-up (``_walk_like_the_kernel``)
@@ -31,7 +32,7 @@ from mini_tpu_torch.graph import GraphSlice, erdos_renyi, from_edges, rmat
 from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.graph.banded import build_banded_layout, row_prefix
 from mini_tpu_torch.ops.kernels import spmm_banded as k2
-from mini_tpu_torch.ops.spmm import spmm
+from mini_tpu_torch.ops.spmm import _weigh, spmm
 
 SUM_TOL = 1e-5  # max |scheduled - plain| <= SUM_TOL * max |plain|
 
@@ -135,15 +136,37 @@ def test_scheduled_matches_plain(layouts, name, F, dtype):
         _assert_close(got, want)
 
 
-def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes):
+def _round_bf16(a):
+    """float32 to bfloat16, nearest even, and back (finite values), as
+    ``__float2bfloat16_rn``."""
+    b = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    b = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16) << 16
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _weigh_like_the_kernel(m, w, heads):
+    """A stream's messages scaled as the weighted walker scales them: the
+    weight cast to the messages' dtype, one float32 product an element,
+    rounded to bf16 for bf16 messages; in numpy."""
+    x = m.float().numpy()
+    wf = w.to(m.dtype).float().numpy().reshape(m.shape[0], heads)
+    prod = x * np.repeat(wf, m.shape[1] // heads, axis=1)
+    return _round_bf16(prod) if m.dtype == torch.bfloat16 else prod
+
+
+def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes,
+                          weights=None, heads=1):
     """``banded_segment_sum_kernel`` and ``banded_fixup_kernel`` of
     csrc/spmm_banded.cu, transcribed statement by statement (one walker at
-    a time, all columns at once), in numpy float32.  Unwritten outputs and
-    carries are NaN, so a row written by nobody, or a carry read before it
-    was written, shows."""
+    a time, all columns at once), in numpy float32, each message first
+    scaled by its weight where ``weights`` are given.  Unwritten outputs
+    and carries are NaN, so a row written by nobody, or a carry read
+    before it was written, shows."""
     bounds, offs2d = bounds.numpy(), offs2d.numpy()
     prefix = prefix.numpy().astype(np.int64)
-    msgs = [m.float().numpy() for m in msgs]
+    msgs = ([m.float().numpy() for m in msgs] if weights is None else
+            [_weigh_like_the_kernel(m, w, heads)
+             for m, w in zip(msgs, weights)])
     K, n_tiles, F = len(msgs), offs2d.shape[0], msgs[0].shape[1]
     n_rows = n_tiles * 128
     total = int(prefix[n_rows])
@@ -261,6 +284,99 @@ def test_kernel_walk_matches_scheduled_bitwise(layouts, name, F, dtype,
 ])
 def test_kernel_plan(F, elem, vector, plan):
     assert k2.kernel_plan(F, elem, vector) == plan
+
+
+def _weights(lay, heads, seed=2):
+    """Per-slot weights in [-1, 1), ``[mk_pad]`` or ``[mk_pad, heads]``."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.uniform(-1, 1, (len(i), heads))
+                             .astype(np.float32)).reshape(
+                                 (len(i), heads)[:1 if heads == 1 else 2])
+            for i in lay.ids]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [1, 2, 4])
+@pytest.mark.parametrize("F", [40, 128, 256])
+@pytest.mark.parametrize("name", ["star", "rmat_K3", "empty_band"])
+def test_weighted_sum_is_the_sum_of_weighed_messages(layouts, name, F,
+                                                     heads, dtype):
+    """The weights the kernel takes give, bit for bit, what the SpMM's
+    unfused route gave: the same sum of ``_weigh``-ed messages without
+    weights, in the plain version and in the kernel's schedule.  The star
+    holds a hub over many walkers and empty rows, rmat isolated vertices,
+    every layout pad slots."""
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    msgs, w = _msgs(lay, F, dtype), _weights(lay, heads)
+    weighed = [_weigh(m, wk, heads) for m, wk in zip(msgs, w)]
+    got = k2.banded_segment_sum_plain(*args, msgs, weights=w)
+    assert torch.equal(got, k2.banded_segment_sum_plain(*args, weighed))
+    prefix = row_prefix(*args)
+    got = k2.banded_segment_sum_scheduled_plain(*args, msgs,
+                                                row_prefix=prefix, weights=w)
+    assert torch.equal(got, k2.banded_segment_sum_scheduled_plain(
+        *args, weighed, row_prefix=prefix))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["star", "rmat_K3", "empty_band"])
+def test_unit_weights_and_none_give_the_unweighted_sum(layouts, name, dtype):
+    """``weights=None`` leaves the sum as it was without weights (the
+    unweighted walker's transcription, bit for bit), and weights of 1 give
+    its bits too (x * 1 is exact), with and without heads."""
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    msgs = _msgs(lay, 40, dtype)
+    prefix = row_prefix(*args)
+    _, chunk, fix_lanes = k2.kernel_plan(40, msgs[0].element_size(),
+                                         k2._vector_ok(msgs))
+    walked = _walk_like_the_kernel(*args, msgs, prefix, chunk, fix_lanes)
+    assert torch.equal(k2.banded_segment_sum_scheduled_plain(
+        *args, msgs, row_prefix=prefix, weights=None), walked)
+    for fn in (k2.banded_segment_sum_plain,
+               k2.banded_segment_sum_scheduled_plain):
+        want = fn(*args, msgs)
+        assert torch.equal(fn(*args, msgs, weights=None), want)
+        for heads in (1, 4):
+            ones = [torch.ones_like(w) for w in _weights(lay, heads)]
+            assert torch.equal(fn(*args, msgs, weights=ones), want)
+
+
+@pytest.mark.parametrize("name,F,heads,dtype,chunk", [
+    ("rmat_K3", 40, 1, torch.float32, 61),
+    ("rmat_K9", 16, 1, torch.bfloat16, 512),
+    ("star", 12, 3, torch.float32, 64),      # a head a lane vector
+    ("star", 40, 4, torch.float32, 100),     # heads split the vectors
+    ("empty_band", 24, 3, torch.bfloat16, 40),
+    ("regular", 5, 1, torch.bfloat16, 8),
+])
+def test_weighted_kernel_walk_matches_scheduled_bitwise(layouts, name, F,
+                                                        heads, dtype, chunk):
+    """The weighted walker, transcribed with the product and its bf16
+    rounding in numpy, gives the scheduled emulation's bits."""
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    msgs, w = _msgs(lay, F, dtype, seed=3), _weights(lay, heads, seed=4)
+    prefix = row_prefix(*args)
+    want = k2.banded_segment_sum_scheduled_plain(
+        *args, msgs, row_prefix=prefix, chunk=chunk, weights=w)
+    fix_lanes = k2.kernel_plan(F, msgs[0].element_size(),
+                               k2._vector_ok(msgs))[2]
+    got = _walk_like_the_kernel(*args, msgs, prefix, chunk, fix_lanes,
+                                weights=w, heads=heads)
+    assert torch.equal(got, want)
+
+
+def test_weights_checked():
+    lay = _rmat_layout(3)
+    args = _kernel_args(lay)
+    msgs, w = _msgs(lay, 16, torch.float32), _weights(lay, 1)
+    for bad in (w[:2], [x[:-1] for x in w], [x[:, None].expand(-1, 3)
+                                             for x in w],
+                [x.long() for x in w]):
+        with pytest.raises(ValueError, match="weights"):
+            k2.banded_segment_sum_plain(*args, msgs, weights=bad)
 
 
 def test_schedule_shapes(layouts):
@@ -496,3 +612,88 @@ def test_sddmm_launch_arguments(monkeypatch, layouts, F, H, dtype, ydt):
         k2.banded_sddmm(*card, [on_card(m) for m in msgs], on_card(y),
                         heads=H, seg=[on_card(s.long())
                                       for s in lay.dev("cpu")["seg"]])
+
+
+def fake_sum_launch(msg_ptrs, K, bounds_p, offs2d_p, prefix_p, out_p,
+                    carry_p, n_tiles, F, dtype, vector, lanes, chunk,
+                    n_walkers, fix_lanes, wt_ptrs, heads, stream):
+    """``csrc/spmm_banded.cu``'s banded_segment_sum_launch on the host
+    memory its pointers name: the entry's checks of the heads against the
+    walker's form, then the walker and fix-up transcription on the real
+    slots and their weights.  Records its arguments in ``calls``."""
+    import ctypes
+
+    def mem(ptr, n, ct):
+        return np.ctypeslib.as_array((ct * max(n, 1)).from_address(ptr))[:n]
+
+    def stream_of(ptr, n, cols):
+        if dtype == 0:
+            return torch.from_numpy(mem(ptr, n * cols, ctypes.c_float)
+                                    .reshape(n, cols).copy())
+        raw = mem(ptr, n * cols, ctypes.c_int16).reshape(n, cols).copy()
+        return torch.from_numpy(raw).view(torch.bfloat16)
+
+    fake_sum_launch.calls.append(dict(vector=vector, lanes=lanes,
+                                      chunk=chunk, fix_lanes=fix_lanes,
+                                      heads=heads,
+                                      weighted=wt_ptrs is not None))
+    V = (4 if dtype == 0 else 8) if vector else 1
+    if heads < 1 or F % heads or (F // heads) % V:
+        return 1
+    bounds = torch.from_numpy(mem(bounds_p, K * (n_tiles + 1),
+                                  ctypes.c_int32).reshape(K, -1).copy())
+    offs2d = torch.from_numpy(mem(offs2d_p, n_tiles * K * 128,
+                                  ctypes.c_int32).reshape(n_tiles, K, 128)
+                              .copy())
+    prefix = torch.from_numpy(mem(prefix_p, n_tiles * 128 + 1,
+                                  ctypes.c_int32).copy())
+    real = [int(b) for b in bounds[:, -1]]
+    msgs = [stream_of(msg_ptrs[k], real[k], F) for k in range(K)]
+    weights = None if wt_ptrs is None else [
+        stream_of(wt_ptrs[k], real[k], heads) for k in range(K)]
+    got = _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk,
+                                fix_lanes, weights, heads)
+    out = mem(out_p, n_tiles * 128 * F, ctypes.c_float)
+    out[:] = got.reshape(-1).numpy()
+    return 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,heads", [(40, None), (40, 1), (128, 4),
+                                     (40, 4), (33, 3)])
+def test_weighted_launch_arguments(monkeypatch, layouts, F, heads, dtype):
+    """The launch path with weights: the weight pointers and heads reach
+    the C entry (emulated on CPU memory), cast to the messages' dtype; a
+    head width that splits a lane vector takes the scalar form on the
+    vector form's chunk and fix-up lanes; the result is the scheduled
+    emulation's, bit for bit; both counters move."""
+    from mini_tpu_torch.ops.kernels import _build
+    from test_torch_gather import on_card
+
+    monkeypatch.setattr(k2, "_sum_launch", fake_sum_launch)
+    monkeypatch.setattr(k2, "_sddmm_launch", object())
+    monkeypatch.setattr(k2, "_max_bands", 128)
+    monkeypatch.setattr(_build, "stream", lambda device_index: 0)
+    monkeypatch.setattr(fake_sum_launch, "calls", [], raising=False)
+    lay = layouts["star"]
+    args = _kernel_args(lay)
+    prefix = row_prefix(*args)
+    msgs = _msgs(lay, F, dtype)
+    w = None if heads is None else _weights(lay, heads)
+    before = (k2.launches, k2.weighted_launches)
+    got = k2.banded_segment_sum(
+        *[on_card(a) for a in args], [on_card(m) for m in msgs],
+        row_prefix=on_card(prefix),
+        weights=None if w is None else [on_card(x) for x in w])
+    assert (k2.launches, k2.weighted_launches) == (
+        before[0] + 1, before[1] + (w is not None))
+    assert torch.equal(got, k2.banded_segment_sum_scheduled_plain(
+        *args, msgs, row_prefix=prefix, weights=w))
+    call, = fake_sum_launch.calls
+    rows = k2._vector_ok(msgs)
+    lanes, chunk, fix_lanes = k2.kernel_plan(F, msgs[0].element_size(), rows)
+    assert (call["chunk"], call["fix_lanes"]) == (chunk, fix_lanes)
+    split = heads is not None and (F // heads) % (16 // msgs[0].element_size())
+    assert call["vector"] == int(rows and not split)
+    assert call["heads"] == (heads or 1)
+    assert call["weighted"] == (w is not None)
