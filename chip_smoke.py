@@ -241,7 +241,8 @@ def device_events(fn, device, n: int = 20) -> list:
             fn()
         torch.cuda.synchronize(device)
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]  # as in profile_step
 
 
 def profiled_ms(fn, device, n: int = 20) -> float:
@@ -603,19 +604,7 @@ def check_segment_reduce(g, hg_big, rng, device):
         dev = lay.dev(device)
         bands = [reduce_values(rng, (len(i), H), torch.float32, device)
                  for i in lay.ids]
-        got = k1.segment_reduce_bands(dev["offsets"], bands, seg=dev["seg"])
-        again = k1.segment_reduce_bands(dev["offsets"], bands,
-                                        seg=dev["seg"])
-        no_ids = k1.segment_reduce_bands(dev["offsets"], bands)
-        want = k1.segment_reduce_bands_plain(dev["offsets"], bands)
-        emulated = k1.segment_reduce_scheduled_plain(dev["offsets"], bands)
-        torch.cuda.synchronize(device)
-        err = float((got - want).abs().max())
-        limit = SUM_TOL * float(want.abs().max())
-        assert err <= limit, (direction, err, limit)
-        assert torch.equal(got, again), "two launches differ"
-        assert torch.equal(got, no_ids), "slots' rows built in the call"
-        assert torch.equal(got, emulated), "not the emulated schedule"
+        err, limit, want = band_sums_agree(direction, dev, bands, device)
         err1 = max(err1, err)
 
         def per_band_and_column():  # what one launch replaces
@@ -655,6 +644,32 @@ def check_segment_reduce(g, hg_big, rng, device):
     refuses_grad("segment_reduce_bands", lambda *b: k1.segment_reduce_bands(
         dev["offsets"], b), *bands)
     return kernel_stats(err1, *t1)
+
+
+def band_sums_agree(label, dev, bands, device) -> tuple:
+    """Kernel 1's K-band entry (``[mk, H]`` bands, one launch) on a
+    layout's offsets: within SUM_TOL of the plain version, two launches
+    bitwise equal, bitwise the launch that builds the slots' rows itself
+    and the plain emulation of its schedule; returns (max abs error, its
+    limit, the plain sums)."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
+
+    offs = dev["offsets"]
+    got = k1.segment_reduce_bands(offs, bands, seg=dev["seg"])
+    again = k1.segment_reduce_bands(offs, bands, seg=dev["seg"])
+    no_ids = k1.segment_reduce_bands(offs, bands)
+    want = k1.segment_reduce_bands_plain(offs, bands)
+    emulated = k1.segment_reduce_scheduled_plain(offs, bands)
+    torch.cuda.synchronize(device)
+    err = float((got - want).abs().max())
+    limit = SUM_TOL * float(want.abs().max())
+    assert err <= limit, (label, err, limit)
+    assert torch.equal(got, again), f"{label}: two launches differ"
+    assert torch.equal(got, no_ids), f"{label}: slots' rows built in the call"
+    assert torch.equal(got, emulated), f"{label}: not the emulated schedule"
+    return err, limit, want
 
 
 def band_messages(layout, dev, F, dtype, rng, device) -> tuple:
@@ -1476,7 +1491,10 @@ def profile_step(step, device, steps: int = 3, parts=PROFILE_PARTS):
         for _ in range(steps):
             step()
         torch.cuda.synchronize(device)
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the device side of a record_function range (the program's spans) is
+    # a CUDA event too: it spans kernels, and is none itself
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
     if not kern:
         return None
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / steps
@@ -1525,6 +1543,96 @@ def profile_gat(g, device, steps: int = 3) -> None:
             + (text or "the profiler saw no device events"))
 
 
+# the arxiv-gat-train cell's attention layers: (heads, features a head),
+# each head's padding empty in the first (no spare lane)
+GAT_CELL_HEADS = ((4, 256), (6, 40))
+# a no-lane network at rmat16's widths, as the cell's: per-layer heads,
+# both heads of 64 and 4 heads of 32 fill 128 columns, a skip on layer 1
+GAT_NO_LANE = dict(dims=[F_IN, 64, 64, 32], heads=[2, 2, 4], skip=(1,))
+
+
+def hold_gat_kernels(label, g, device):
+    """The attention layer's kernels at the row bytes of the
+    ``arxiv-gat-train`` cell's layers (:data:`GAT_CELL_HEADS`), on ``g``'s
+    layouts, float32 as the cell runs them: kernel 2 weighted by ``[mk,
+    H]`` weights on the pull layout (the forward's aggregation) and the
+    push layout (``g_h``), within SUM_TOL of its plain version and bitwise
+    its emulated schedule; kernel 1's K-band entry on ``[mk, H]`` bands of
+    both layouts (the denominators, ``ds_dst``, ``ds_src``); the heads
+    SDDMM (the weight cotangent) on the pull layout, in the form its plan
+    takes at that width (:func:`sddmm_case`)."""
+    import torch
+
+    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.models.gat import _head_pad
+
+    rng = np.random.RandomState(0)
+    f32 = torch.float32
+    for H, d in GAT_CELL_HEADS:
+        F = H * _head_pad(H, d)
+        for direction in ("pull", "push"):
+            lay = get_layout(g, direction, row_bytes=F * 4)
+            dev = lay.dev(device)
+            at = f"{label} {direction} K={lay.K} F={F} H={H}"
+            # the layer's weights lie in (0, 1]
+            w = [torch.from_numpy(1.0 - rng.rand(len(i), H).astype(
+                np.float32)).to(device) for i in lay.ids]
+            msgs, _ = band_messages(lay, dev, F, f32, rng, device)
+            err2, limit2 = banded_sum_agrees(at, dev, msgs, device,
+                                             weights=w)
+            del msgs
+            err1, limit1, _ = band_sums_agree(at, dev, w, device)
+            log(f"# gat cell kernels {at}: banded_segment_sum weighted by "
+                f"[mk, {H}] err {err2:.3g} (bound {limit2:.3g}), "
+                f"segment_reduce_bands of the [mk, {H}] weights err "
+                f"{err1:.3g} (bound {limit1:.3g}); both two launches and "
+                f"the emulated schedule bitwise")
+            if direction == "pull":
+                sddmm_case(label, lay, dev, F, H, f32, f32, rng, device)
+            del w
+            torch.cuda.empty_cache()
+
+
+def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
+    """:data:`GAT_NO_LANE`'s train step under ``attn="auto"``: every layer
+    on the banded layer (the launches a layer of :func:`phase_gat`'s step,
+    none sent to the fused path), its loss and gradients against the fused
+    path's."""
+    import torch
+
+    from mini_tpu_torch.models import gat
+    from mini_tpu_torch.models.gat import _head_pad, gat_init, gat_init_opt
+
+    dims, heads, skip = (GAT_NO_LANE[k] for k in ("dims", "heads", "skip"))
+    assert all(_head_pad(h, d) == d for h, d in zip(heads, dims[1:]))
+    params = gat_init(torch.Generator().manual_seed(3), dims, heads=heads,
+                      device=device)
+
+    def step(attn):
+        return gat.gat_train_step(params, gat_init_opt(params), g, x,
+                                  (labels, mask), 1e-2, attn=attn, skip=skip)
+
+    before, fused = launches_now(), gat.fused_layers
+    _, grads, loss = step("auto")
+    counts = launches_since(before)
+    L = len(heads)
+    want = dict(segment_reduce=3 * L, banded_segment_sum=2 * L,
+                banded_sddmm=L, segment_sum=0, gather_rows=L * (2 * K + K_b),
+                apply_fixed_perm=L)
+    assert counts == want, counts
+    assert gat.fused_layers == fused, "a no-lane layer left the banded path"
+    _, grads_f, loss_f = step("fused")
+    np.testing.assert_allclose(float(loss), float(loss_f), rtol=1e-5)
+    err = grads_close(grads, grads_f, GRAD_TOL)
+    per = {f"{k}{i}": float((a[k] - b[k]).abs().max() / b[k].abs().max())
+           for i, (a, b) in enumerate(zip(grads, grads_f)) for k in b}
+    log(f"# gat no-lane step rmat{SCALE} {dims} heads {heads} skip "
+        f"{list(skip)}: every layer banded, {json.dumps(counts)}; loss "
+        f"{float(loss):.6f} (fused {float(loss_f):.6f}), grads vs fused "
+        f"max err/max|fused| {err:.3g} (bound {GRAD_TOL}; per parameter "
+        + ", ".join(f"{k} {v:.3g}" for k, v in per.items()) + ")")
+
+
 def phase_gat(hg, g, hg_big, device):
     """bench.py's gat rows (gat_f32, gat_bf16, gat_train_*) on the RMAT
     graph, its profile by kernel, the peak memory of a train step (also on
@@ -1550,9 +1658,10 @@ def phase_gat(hg, g, hg_big, device):
         before = launches_now()
         out32 = gat_forward(params, g, x)
         counts = launches_since(before)
-    # the banded layer: per layer K band gathers and one banded sum, and no
-    # permutation (the fused path permutes its weights into bands)
-    want = dict(segment_reduce=0, banded_segment_sum=2, banded_sddmm=0,
+    # the banded layer: per layer K band gathers, one banded sum and one
+    # segment reduce (the softmax denominators, all bands and heads), and
+    # no permutation (the fused path permutes its weights into bands)
+    want = dict(segment_reduce=2, banded_segment_sum=2, banded_sddmm=0,
                 segment_sum=0, gather_rows=2 * K, apply_fixed_perm=0)
     assert counts == want, counts
     ref = gat_forward_cpu(
@@ -1584,12 +1693,13 @@ def phase_gat(hg, g, hg_big, device):
     before = launches_now()
     _, grads, loss = step("auto")
     counts = launches_since(before)
-    # per layer: forward K gathers + 1 sum; backward K gathers + 1 SDDMM
-    # (weight cotangent), 2 segment reduces (ds_dst off the pull bands,
-    # ds_src off the push bands: each one launch for all bands and heads,
-    # where a launch per band and head made H (K + K_b) = 12 a layer), 1
-    # permutation (pull to push bands), K_b gathers + 1 sum (g_h)
-    want = dict(segment_reduce=2 * 2, banded_segment_sum=4,
+    # per layer: forward K gathers + 1 sum + 1 segment reduce (the
+    # denominators); backward K gathers + 1 SDDMM (weight cotangent), 2
+    # segment reduces (ds_dst off the pull bands, ds_src off the push
+    # bands: each one launch for all bands and heads, where a launch per
+    # band and head made H (K + K_b) = 12 a layer), 1 permutation (pull to
+    # push bands), K_b gathers + 1 sum (g_h)
+    want = dict(segment_reduce=2 * 3, banded_segment_sum=4,
                 banded_sddmm=2, segment_sum=0, gather_rows=2 * (2 * K + K_b),
                 apply_fixed_perm=2)
     assert counts == want, (
@@ -1614,6 +1724,7 @@ def phase_gat(hg, g, hg_big, device):
         f"fused max err/max|fused| {err:.3g} per parameter (bound "
         f"{GRAD_TOL}); bf16 grads max err/largest fused grad {err16:.3g} "
         f"(bound {BF16_TOL})")
+    gat_no_lane_step(g, x, labels, mask, K, K_b, device)
 
     for name, attn, mdt in (("gat_train_f32", "auto", None),
                             ("gat_train_bf16", "auto", torch.bfloat16),
@@ -1646,6 +1757,8 @@ def phase_gat(hg, g, hg_big, device):
             f": peak device memory {peak:.3f} GiB (max_memory_allocated; "
             f"{base:.3f} GiB allocated before the step)")
     profile_gat(g, device)
+    with uncounted():
+        hold_gat_kernels(f"rmat{SCALE}", g, device)
 
     t0 = time.perf_counter()
     g_big = GraphSlice.from_host(hg_big, device=device)

@@ -5,15 +5,21 @@ Per head:  h = X W;  e_uv = LeakyReLU(a_s.h_u + a_d.h_v);
 
 Parameters keep the JAX package's layout, a list of ``{"w", "a_src",
 "a_dst"}`` dicts with ``w`` ``[H, fan_in, d]``, so
-:func:`params_from_jax` carries them across.  Hidden layers concat their
-heads (then ELU), the last layer averages them.
+:func:`params_from_jax` carries them across; each layer has its own H.
+Hidden layers concat their heads (then ELU), the last layer averages them.
+``skip`` names the layers that add their input to that result before the
+activation (an identity skip, where the input is as wide as the output),
+as the GAT paper's deep PPI model does across its middle layer.
 
 ``attn`` picks the attention layer:
 
 * ``"banded"`` (``"auto"`` on CUDA): :func:`_gat_layer_banded`, scores,
   weights and messages born in banded order from one set of band gathers,
-  the softmax denominators riding a ones column in each head's padding,
-  one ``banded_segment_sum`` launch.  :class:`_GatBandedLayer` makes it
+  one ``banded_segment_sum`` launch, the softmax denominators the
+  per-segment sums of the weights themselves (one launch of
+  :func:`banded_heads_segment_sum`), so a head needs no spare lane in its
+  padding.  While a profiler runs the forward is the span ``gat.attn`` and
+  the backward ``gat.attn.backward``.  :class:`_GatBandedLayer` makes it
   trainable with the JAX package's native banded backward: the weight
   cotangent by the banded SDDMM with heads, ``ds_dst`` and ``ds_src`` by
   :func:`banded_heads_segment_sum` straight off the pull and push bands,
@@ -61,6 +67,11 @@ from mini_tpu_torch.ops.spmm import (
     spmm,
 )
 from mini_tpu_torch.utils.device import resolve_device
+from mini_tpu_torch.utils.profiling import scope
+
+# attention layers that ``auto`` or ``banded`` sent off the banded layer
+# (to the fused path), since the last reset
+fused_layers = 0
 
 
 def _head_pad(n_heads: int, d: int) -> int:
@@ -100,14 +111,17 @@ def _gat_layer_banded(
 
     Per band k: the gather ``xg = hw_cat[band k][ids[k]]`` (the
     ``gather_rows`` kernel), the source scores ``sc = xg @ A`` (A the
-    block-diagonal ``a_src`` projector, zero over the padding, so the ones
-    column never enters a score), the dst scores expanded by the band's
+    block-diagonal ``a_src`` projector, zero over the padding), the dst scores expanded by the band's
     segment ids, the unnormalized weight ``w = exp(LRelu(sc + ed) -
     LRelu(gmax + ed))`` (``gmax`` the global max of the source scores, an
     exact stabilizer because LeakyReLU is monotone).  One
     ``banded_segment_sum`` folds the messages ``xg * w`` per head block,
-    weighing them as it adds them; the ones column's sum is each head's
-    denominator.
+    weighing them as it adds them.  Each head's denominator is the
+    per-segment sum of its weights as the kernel rounds them (to
+    ``message_dtype`` first), by one launch of
+    :func:`banded_heads_segment_sum` over the K ``[mk, H]`` bands: no
+    column of the messages carries it, so a head's padding may be empty
+    (``_head_pad(H, d) == d``).
 
     Returns the per-head normalized outputs and the residuals of the
     backward: the per-band ``w`` and LeakyReLU sign bits and the ``[n_pad,
@@ -121,7 +135,7 @@ def _gat_layer_banded(
 
     # float32 through the gather, so the scores are float32; the messages
     # are cast to message_dtype after it, and weighted in the kernel
-    hw_cat = _concat_heads(hws, d, d_pad, ones=True)
+    hw_cat = _concat_heads(hws, d, d_pad, ones=False)
     A = hw_cat.new_zeros(F, H)
     for hd in range(H):
         A[hd * d_pad: hd * d_pad + d, hd] = a_src_l[hd]
@@ -143,15 +157,15 @@ def _gat_layer_banded(
     out = banded_segment_sum(dev["bounds"], dev["offs2d"], msgs,
                              precision="split", edge_chunk=layout.edge_chunk,
                              row_prefix=dev["row_prefix"], weights=w_bands)
-    heads, denoms = [], []
-    for hd in range(H):
-        denom = out[:, hd * d_pad + d].clamp(min=1e-30)
-        denoms.append(denom)
-        heads.append(out[:, hd * d_pad: hd * d_pad + d] / denom[:, None])
+    w_sum = (w_bands if message_dtype is None
+             else [w.to(message_dtype).float() for w in w_bands])
+    denom = banded_heads_segment_sum(layout, w_sum).clamp(min=1e-30)
+    heads = [out[:, hd * d_pad: hd * d_pad + d] / denom[:, hd, None]
+             for hd in range(H)]
     return heads, {
         "w_bands": w_bands,
         "pos_bands": pos_bands,
-        "denom": torch.stack(denoms, dim=-1),  # [n_pad, H]
+        "denom": denom,
     }
 
 
@@ -162,10 +176,11 @@ class _GatBandedLayer(torch.autograd.Function):
     ``hws, a_src, s_src, s_dst``; outputs the H normalized heads.  The
     forward saves the per-band weights ``w``, the LeakyReLU sign bits, the
     denominators and the outputs.  With ``q = ct / W`` and ``r = <ct, y> /
-    W`` per head, a dst-side matrix ``Q`` of blocks ``[q, -r, 0]`` makes
-    the banded SDDMM ``<Q_dst, h~_u>`` emit the weight cotangent ``g_w =
-    <q, h~> - r`` (the ones column in reverse), and the push-direction
-    banded SpMM of ``Q`` with the saved weights emits ``g_h``.  The score
+    W`` per head, a dst-side matrix ``Q`` of blocks ``[q, 0]`` makes the
+    banded SDDMM ``<Q_dst, h_u>`` emit ``<q, h>``, and the weight
+    cotangent ``g_w = <q, h> - r`` takes ``r`` off each band by its slots'
+    segment ids; the push-direction banded SpMM of ``Q`` with the saved
+    weights emits ``g_h``.  The score
     cotangent ``g_e = w g_w LRelu'`` is summed per dst off the pull bands
     (``ds_dst``) and per src off the push bands (``ds_src``), the weights
     and ``g_e`` moved to push order by one fixed permutation.  The
@@ -176,10 +191,11 @@ class _GatBandedLayer(torch.autograd.Function):
     def forward(ctx, g, d, negative_slope, message_dtype, H, *args):
         hws, a_src_l, s_src_l, s_dst_l = (
             list(args[i * H:(i + 1) * H]) for i in range(4))
-        heads, aux = _gat_layer_banded(
-            g, hws, a_src_l, s_src_l, s_dst_l, d, negative_slope,
-            message_dtype,
-        )
+        with scope("gat.attn"):
+            heads, aux = _gat_layer_banded(
+                g, hws, a_src_l, s_src_l, s_dst_l, d, negative_slope,
+                message_dtype,
+            )
         ctx.g, ctx.d, ctx.slope, ctx.mdt, ctx.H = (
             g, d, negative_slope, message_dtype, H)
         ctx.K = len(aux["w_bands"])
@@ -190,6 +206,11 @@ class _GatBandedLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *ct):
+        with scope("gat.attn.backward"):
+            return _GatBandedLayer._backward(ctx, *ct)
+
+    @staticmethod
+    def _backward(ctx, *ct):
         g, d, H, K, mdt = ctx.g, ctx.d, ctx.H, ctx.K, ctx.mdt
         saved = ctx.saved_tensors
         hws = saved[:H]
@@ -199,22 +220,20 @@ class _GatBandedLayer(torch.autograd.Function):
         ys = saved[H + 2 * K + 1:]
         d_pad = _head_pad(H, d)
         F = H * d_pad
-        n_pad = hws[0].shape[0]
         layout = get_layout(g, "pull", row_bytes=F * 4)
         layout_b = get_layout(g, "push", row_bytes=F * 4)
         comp = get_pull_to_push_rank(g, layout, layout_b)
         dev = layout.dev(hws[0].device)
 
-        parts = []
-        for h in range(H):
-            dh = denom[:, h]
-            r = (ct[h] * ys[h]).sum(-1) / dh
-            parts += [ct[h] / dh[:, None], -r[:, None],
-                      hws[0].new_zeros(n_pad, d_pad - d - 1)]
-        Q = torch.cat(parts, dim=-1)  # [n_pad, F] float32
-        hw_cat = _concat_heads(hws, d, d_pad, ones=True)
+        Q = _concat_heads([c / denom[:, h, None] for h, c in enumerate(ct)],
+                          d, d_pad, ones=False)  # [n_pad, F] float32
+        r = torch.stack([(c * y).sum(-1) for c, y in zip(ct, ys)],
+                        dim=-1) / denom  # [n_pad, H]
+        hw_cat = _concat_heads(hws, d, d_pad, ones=False)
         x_sd = hw_cat if mdt is None else hw_cat.to(mdt)
-        gw_bands = _weight_cotangent(x_sd, Q, layout, "split", heads=H)
+        gw_bands = [gw - torch.index_select(r, 0, seg) for gw, seg in zip(
+            _weight_cotangent(x_sd, Q, layout, "split", heads=H),
+            dev["seg"])]
 
         # the score chain from the residuals: g_e = w g_w LRelu'
         g_bands = [
@@ -327,14 +346,11 @@ def _banded_layer_supported(
     g, n_heads: int, d: int, force: bool, n_rows: int
 ) -> bool:
     """The preconditions of :func:`_gat_layer_banded`: on the card (or
-    ``force``), a free denominator lane in each head's padding, a banded
-    layout, and ``n_rows`` matching it.  Where they fail, ``auto`` and
-    ``banded`` take the fused path."""
+    ``force``), a banded layout, and ``n_rows`` matching it.  Where they
+    fail, ``auto`` and ``banded`` take the fused path."""
     if not (_on_card(g) or force):
         return False
     d_pad = _head_pad(n_heads, d)
-    if d_pad <= d:
-        return False
     layout = get_layout(g, "pull", row_bytes=n_heads * d_pad * 4)
     if layout is None:
         return False
@@ -344,18 +360,25 @@ def _banded_layer_supported(
 def gat_init(
     generator: torch.Generator,
     dims: Sequence[int],
-    heads: int = 2,
+    heads: int | Sequence[int] = 2,
     dtype=torch.float32,
     device=None,
 ) -> list[dict]:
     """Layers project to dims[i+1] per head; hidden layers concat heads,
-    the final layer averages them.  Glorot-uniform draws from
-    ``generator`` (a CPU generator; the tensors then move to
-    ``device``, ``None`` for the card)."""
+    the final layer averages them.  ``heads``: one count for every layer,
+    or one a layer; a hidden layer's output is ``dims[i+1]`` times its
+    heads wide.  Glorot-uniform draws from ``generator`` (a CPU
+    generator; the tensors then move to ``device``, ``None`` for the
+    card)."""
+    n_layers = len(dims) - 1
+    heads = ([heads] * n_layers if isinstance(heads, int)
+             else [int(h) for h in heads])
+    if len(heads) != n_layers:
+        raise ValueError(f"{len(heads)} head counts for {n_layers} layers")
     device = resolve_device(device)
     params = []
-    for i in range(len(dims) - 1):
-        fan_in = dims[i] * (heads if i > 0 else 1)
+    for i in range(n_layers):
+        fan_in = dims[i] * (heads[i - 1] if i > 0 else 1)
         scale = math.sqrt(6.0 / (fan_in + dims[i + 1]))
 
         def u(*shape):
@@ -363,9 +386,9 @@ def gat_init(
             return ((r * 2 - 1) * scale).to(device)
 
         params.append({
-            "w": u(heads, fan_in, dims[i + 1]),
-            "a_src": u(heads, dims[i + 1]),
-            "a_dst": u(heads, dims[i + 1]),
+            "w": u(heads[i], fan_in, dims[i + 1]),
+            "a_src": u(heads[i], dims[i + 1]),
+            "a_dst": u(heads[i], dims[i + 1]),
         })
     return params
 
@@ -378,6 +401,7 @@ def gat_forward(
     message_dtype=None,
     batch_softmax: bool = False,
     attn: str = "auto",
+    skip: Sequence[int] = (),
 ) -> torch.Tensor:
     """Forward pass; returns ``[n_pad, dims[-1]]``.
 
@@ -386,11 +410,20 @@ def gat_forward(
     stay float32).  ``attn``: ``auto`` (banded on CUDA, fused on the CPU),
     ``banded``, ``fused`` or ``softmax`` (see module doc).
     ``batch_softmax`` (softmax only) runs the score/softmax phase once
-    over ``[m_pad, H]`` instead of per head."""
+    over ``[m_pad, H]`` instead of per head.  ``skip``: the indices of
+    the layers whose input is added to their heads' concat (or mean)
+    before the ELU; such a layer's input and output widths must agree.
+    Each layer that ``auto`` or ``banded`` cannot run on the banded layer
+    adds one to the module's ``fused_layers``."""
+    global fused_layers
     if attn not in ("auto", "banded", "fused", "softmax"):
         raise ValueError(f"unknown attn {attn!r}")
     h = x
     n_layers = len(params)
+    skip = {int(i) for i in skip}
+    if not skip <= set(range(n_layers)):
+        raise ValueError(f"skip {sorted(skip)} names no layer of "
+                         f"{n_layers}")
     for i, layer in enumerate(params):
         n_heads = layer["w"].shape[0]
         d = layer["w"].shape[2]
@@ -407,16 +440,22 @@ def gat_forward(
                 *s_dst_l,
             )
         elif attn in ("auto", "banded", "fused"):
+            fused_layers += attn != "fused"
             heads = _gat_fused_heads(g, hws, s_src_l, s_dst_l, d,
                                      negative_slope, message_dtype)
         else:
             heads = _softmax_heads(g, hws, s_src_l, s_dst_l, d,
                                    negative_slope, message_dtype,
                                    batch_softmax)
-        if i < n_layers - 1:
-            h = F_.elu(torch.cat(heads, dim=-1))
-        else:
-            h = sum(heads) / len(heads)
+        out = (torch.cat(heads, dim=-1) if i < n_layers - 1
+               else sum(heads) / len(heads))
+        if i in skip:
+            if out.shape != h.shape:
+                raise ValueError(f"layer {i} maps {h.shape[-1]} to "
+                                 f"{out.shape[-1]} columns: no identity "
+                                 "skip")
+            out = out + h
+        h = F_.elu(out) if i < n_layers - 1 else out
     return h
 
 
@@ -515,11 +554,12 @@ def gat_forward_cpu(
 def gat_loss(
     params, g: GraphSlice, x, labels, label_mask,
     negative_slope: float = 0.2, message_dtype=None, attn: str = "auto",
+    skip: Sequence[int] = (),
 ) -> torch.Tensor:
     """Masked softmax cross-entropy over labeled vertices (the
     ``gcn_loss`` contract on the GAT forward)."""
     logits = gat_forward(params, g, x, negative_slope=negative_slope,
-                         message_dtype=message_dtype, attn=attn)
+                         message_dtype=message_dtype, attn=attn, skip=skip)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, 1, labels.long()[:, None])[:, 0]
     nll = torch.where(label_mask, nll, 0.0)
@@ -529,17 +569,19 @@ def gat_loss(
 def gat_train_step(
     params, opt_state, g: GraphSlice, x, batch, lr: float = 1e-2,
     negative_slope: float = 0.2, message_dtype=None, attn: str = "auto",
+    skip: Sequence[int] = (),
 ):
     """One SGD-with-momentum step on the GAT, ``batch = (labels,
     label_mask)``.  With ``attn="auto"`` on CUDA the forward runs the
     banded layer and the backward its native banded chain; ``"fused"``
-    differentiates the fused path.  Returns ``(new_params, new_opt,
-    loss)``; the inputs are left as they were."""
+    differentiates the fused path.  ``skip`` as in :func:`gat_forward`.
+    Returns ``(new_params, new_opt, loss)``; the inputs are left as they
+    were."""
     labels, label_mask = batch
     return sgd_momentum_step(
         params, opt_state,
         lambda p: gat_loss(p, g, x, labels, label_mask, negative_slope,
-                           message_dtype, attn),
+                           message_dtype, attn, skip),
         lr,
     )
 

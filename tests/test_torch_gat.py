@@ -225,8 +225,9 @@ def test_train_step_decreases_loss(attn):
 
 def test_init_and_layer_choice(monkeypatch):
     """``gat_init`` shapes and bounds; ``auto`` takes the fused path on
-    the CPU and the banded Function only when asked; one head and heads
-    with no spare lane fall back to the fused path."""
+    the CPU and the banded Function only when asked; heads with no spare
+    lane and one head take the banded Function too, and match the fused
+    path."""
     p1 = tgat.gat_init(torch.Generator().manual_seed(3), DIMS, heads=2,
                        device="cpu")
     p2 = tgat.gat_init(torch.Generator().manual_seed(3), DIMS, heads=2,
@@ -248,18 +249,22 @@ def test_init_and_layer_choice(monkeypatch):
     assert calls == []
     tgat.gat_forward(p1, gt, xt, attn="banded")
     assert calls == [1, 1]
-    # d = 64 with 2 heads leaves no lane for the denominator
+    # d = 64 with 2 heads leaves no spare lane in the padding: the banded
+    # layer's denominators are the weights' sums and need none
     wide = tgat.gat_init(torch.Generator().manual_seed(3), [8, 64], heads=2,
                          device="cpu")
-    tgat.gat_forward(wide, gt, xt, attn="banded")
-    assert calls == [1, 1]
+    np.testing.assert_allclose(
+        tgat.gat_forward(wide, gt, xt, attn="banded").detach().numpy(),
+        tgat.gat_forward(wide, gt, xt, attn="fused").detach().numpy(),
+        rtol=1e-5, atol=1e-6)
+    assert calls == [1, 1, 1]
     one = tgat.gat_init(torch.Generator().manual_seed(3), [8, 16], heads=1,
                         device="cpu")
     ref = tgat.gat_forward(one, gt, xt, attn="fused")
     np.testing.assert_allclose(
         tgat.gat_forward(one, gt, xt, attn="banded").detach().numpy(),
         ref.detach().numpy(), rtol=1e-5, atol=1e-6)
-    assert calls == [1, 1, 1]
+    assert calls == [1, 1, 1, 1]
     with pytest.raises(ValueError, match="attn"):
         tgat.gat_forward(p1, gt, xt, attn="nope")
 

@@ -7,8 +7,10 @@ runs; ``annotate`` is its decorator form; ``wall_timer`` times a block.
 The program's spans: a BFS's query, rounds by kind (as many of each as
 its counters count), reads and predecessor pass, nested in its query; a
 PageRank's query, rounds and reads; a training step's forward, backward
-and update, in that order; and ``ops.spmm.rebanded``, the count of
-banded calls that re-band their weights."""
+and update, in that order; ``ops.spmm.rebanded``, the count of
+banded calls that re-band their weights; a GAT step's ``gat.attn`` and
+``gat.attn.backward`` spans, one a layer, and ``models.gat.fused_layers``,
+the count of layers that left the banded layer."""
 
 import json
 import os
@@ -23,8 +25,10 @@ import mini_tpu_torch.graph as tg
 from mini_tpu_torch.algorithms import bfs, pagerank
 from mini_tpu_torch.graph import GraphSlice, erdos_renyi
 from mini_tpu_torch.graph import banded as tbanded
-from mini_tpu_torch.models import (gcn_init, gcn_init_opt, gcn_normalize,
+from mini_tpu_torch.models import (gat_init, gat_init_opt, gat_train_step,
+                                   gcn_init, gcn_init_opt, gcn_normalize,
                                    gcn_train_step)
+from mini_tpu_torch.models import gat as gat_mod
 from mini_tpu_torch.ops.spmm import spmm
 from mini_tpu_torch.utils import annotate, scope, trace, wall_timer
 from mini_tpu_torch.utils import profiling
@@ -206,3 +210,46 @@ def test_rebanded_counts_the_weights_a_step_re_bands(monkeypatch, hidden,
     step()
     step()
     assert spmm_mod.rebanded - before == 2 * rebands
+
+
+def _gat_case(attn, heads=(2, 2), dims=(16, 64, 8)):
+    g = GraphSlice.from_host(erdos_renyi(200, 1200, seed=3, undirected=True),
+                             device="cpu")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(g.n_pad, dims[0]).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, dims[-1], g.n_pad))
+    params = gat_init(torch.Generator().manual_seed(0), list(dims),
+                      heads=list(heads), device="cpu")
+    return lambda: gat_train_step(
+        params, gat_init_opt(params), g, x, (labels, g.vertex_mask()),
+        attn=attn)
+
+
+@pytest.mark.parametrize("heads", [(2, 2), (2, 3)])
+def test_a_gat_step_spans_its_attention_layers(tmp_path, heads):
+    """On the banded layer (2 heads of 64: no spare lane; 3 heads of 8: a
+    lane) a step holds one ``gat.attn`` span a layer inside
+    ``step.forward`` and one ``gat.attn.backward`` a layer, and no layer
+    leaves the banded layer."""
+    step = _gat_case("banded", heads)
+    before = gat_mod.fused_layers
+    with trace(str(tmp_path)) as d:
+        step()
+    assert gat_mod.fused_layers == before
+    spans = trace_spans(d, ("gat.", "step."))
+    assert count(spans, "gat.attn") == 2
+    assert count(spans, "gat.attn.backward") == 2
+    (_, f0, f1), = [s for s in spans if s[0] == "step.forward"]
+    assert all(f0 <= a and b <= f1 for n, a, b in spans if n == "gat.attn")
+
+
+@pytest.mark.parametrize("attn,fused", [("auto", 2), ("fused", 0),
+                                        ("banded", 0)])
+def test_fused_layers_counts_the_layers_that_leave_the_banded_layer(
+        attn, fused):
+    """``auto`` on the CPU sends every layer to the fused path and counts
+    each; ``fused``, asked for, counts none, nor does the banded layer."""
+    step = _gat_case(attn)
+    before = gat_mod.fused_layers
+    step()
+    assert gat_mod.fused_layers - before == fused

@@ -435,9 +435,10 @@ def test_bands_launch_arguments(faked, K, H, op, dtype):
 def test_heads_sum_is_one_launch(faked, monkeypatch):
     """``banded_heads_segment_sum`` on card tensors launches kernel 1 once
     for K=3 bands and 2 heads (a launch per band and head made 6).  GAT's
-    banded backward calls it twice a layer (``models/gat.py``: ``ds_dst``
-    off the pull bands, ``ds_src`` off the push bands), so a 2-layer step
-    launches kernel 1 four times; ``chip_smoke.py`` asserts that count on
+    banded layer calls it three times a layer (``models/gat.py``: the
+    softmax denominators in the forward; ``ds_dst`` off the pull bands and
+    ``ds_src`` off the push bands in the backward), so a 2-layer step
+    launches kernel 1 six times; ``chip_smoke.py`` asserts that count on
     the card, where the step's other kernels run too."""
     monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", 128 * 128 * 4)
     gt = tg.GraphSlice.from_host(
