@@ -1447,6 +1447,46 @@ def launches_since(before: dict) -> dict:
     return {k: now[k] - before[k] for k in now}
 
 
+# the aten calls that run a cuBLAS product on the card
+DENSE_OPS = ("mm", "addmm", "bmm", "baddbmm", "mv", "addmv", "dot")
+
+
+def dense_calls(fn):
+    """``fn()`` and the number of dense products (:data:`DENSE_OPS`) it
+    dispatched: the cuBLAS calls of a forward or a step, counted on the
+    host."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in DENSE_OPS:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def gat_dense_calls(dims, heads, step: bool) -> int:
+    """The dense products of a GAT forward (``step`` False) or train step
+    whose every layer runs the banded layer: a layer's H products ``h @
+    W`` and 2H per-vertex scores ``hw @ a`` forward, and backward each
+    product's weight gradient, its input gradient (none for the first
+    layer, whose input needs none) and each score's ``a`` gradient.  No
+    product runs on a band's gathered rows: the product form took one a
+    band and layer more, forward only."""
+    n = 0
+    for i, H in enumerate(heads):
+        n += 3 * H
+        if step:
+            n += H * (1 + (i > 0)) + 2 * H
+    return n
+
+
 def grads_close(got, ref, tol, floor=1e-7) -> float:
     """Per parameter, max |got - ref| <= tol * max|ref| + floor (a float32
     sum of terms that cancel to about 0 keeps an absolute error); returns
@@ -1593,6 +1633,54 @@ def hold_gat_kernels(label, g, device):
             torch.cuda.empty_cache()
 
 
+SCORE_TOL = 1e-5  # float32 dot products of 256 or 40 terms, reordered
+
+
+def gat_vertex_scores(label, g, device) -> None:
+    """The banded layer's slot scores at the ``arxiv-gat-train`` cell's
+    widths (:data:`GAT_CELL_HEADS`) on ``g``'s pull layouts: the per-vertex
+    scores ``hw_h @ a_h`` gathered by each band's ids (``gather_rows``, as
+    the layer gathers them; rows of 16 and 24 bytes) against the product
+    of the gathered rows with the block-diagonal score projector ``xg @
+    A``, which the layer ran before; the largest gap over the largest
+    score, within :data:`SCORE_TOL`."""
+    import torch
+
+    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.models.gat import _concat_heads, _head_pad
+    from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
+    from mini_tpu_torch.ops.spmm import _band
+
+    gen = torch.Generator(device).manual_seed(0)
+    for H, d in GAT_CELL_HEADS:
+        d_pad = _head_pad(H, d)
+        F = H * d_pad
+        lay = get_layout(g, "pull", row_bytes=F * 4)
+        dev = lay.dev(device)
+        hws = [torch.randn(lay.n_pad, d, device=device, generator=gen)
+               for _ in range(H)]
+        a = [torch.randn(d, device=device, generator=gen) / d ** 0.5
+             for _ in range(H)]
+        hw_cat = _concat_heads(hws, d, d_pad, ones=False)
+        A = hw_cat.new_zeros(F, H)
+        for h in range(H):
+            A[h * d_pad: h * d_pad + d, h] = a[h]
+        s_src = torch.stack([hw @ ah for hw, ah in zip(hws, a)], dim=-1)
+        gap = top = 0.0
+        for k in range(lay.K):
+            ids = dev["ids"][k]
+            prod = gather_rows(_band(hw_cat, lay, k), ids) @ A
+            got = gather_rows(_band(s_src, lay, k), ids)
+            gap = max(gap, float((got - prod).abs().max()))
+            top = max(top, float(prod.abs().max()))
+        assert gap <= SCORE_TOL * top, (H, d, gap, top)
+        log(f"# gat vertex scores {label} pull K={lay.K} F={F} H={H}: "
+            f"gathered per-vertex scores vs xg @ A, largest gap / largest "
+            f"score {gap / top:.3g} (bound {SCORE_TOL})")
+        del hws, hw_cat, s_src
+        torch.cuda.empty_cache()
+
+
 def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
     """:data:`GAT_NO_LANE`'s train step under ``attn="auto"``: every layer
     on the banded layer (the launches a layer of :func:`phase_gat`'s step,
@@ -1613,21 +1701,25 @@ def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
                                   (labels, mask), 1e-2, attn=attn, skip=skip)
 
     before, fused = launches_now(), gat.fused_layers
-    _, grads, loss = step("auto")
+    scored = gat.vertex_scored_layers
+    (_, grads, loss), dense = dense_calls(lambda: step("auto"))
     counts = launches_since(before)
     L = len(heads)
     want = dict(segment_reduce=3 * L, banded_segment_sum=2 * L,
-                banded_sddmm=L, segment_sum=0, gather_rows=L * (2 * K + K_b),
+                banded_sddmm=L, segment_sum=0, gather_rows=L * (3 * K + K_b),
                 apply_fixed_perm=L)
     assert counts == want, counts
     assert gat.fused_layers == fused, "a no-lane layer left the banded path"
+    assert gat.vertex_scored_layers - scored == L
+    assert dense == gat_dense_calls(dims, heads, True), dense
     _, grads_f, loss_f = step("fused")
     np.testing.assert_allclose(float(loss), float(loss_f), rtol=1e-5)
     err = grads_close(grads, grads_f, GRAD_TOL)
     per = {f"{k}{i}": float((a[k] - b[k]).abs().max() / b[k].abs().max())
            for i, (a, b) in enumerate(zip(grads, grads_f)) for k in b}
     log(f"# gat no-lane step rmat{SCALE} {dims} heads {heads} skip "
-        f"{list(skip)}: every layer banded, {json.dumps(counts)}; loss "
+        f"{list(skip)}: every layer banded, {json.dumps(counts)}, {dense} "
+        f"cuBLAS calls (the product form's {dense + L * K}); loss "
         f"{float(loss):.6f} (fused {float(loss_f):.6f}), grads vs fused "
         f"max err/max|fused| {err:.3g} (bound {GRAD_TOL}; per parameter "
         + ", ".join(f"{k} {v:.3g}" for k, v in per.items()) + ")")
@@ -1641,6 +1733,7 @@ def phase_gat(hg, g, hg_big, device):
 
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi
     from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
+    from mini_tpu_torch.models import gat
     from mini_tpu_torch.models.gat import (
         gat_forward, gat_forward_cpu, gat_init, gat_init_opt, gat_train_step,
     )
@@ -1654,16 +1747,23 @@ def phase_gat(hg, g, hg_big, device):
     x_np = np.random.RandomState(0).rand(g.n_pad, F_IN).astype(np.float32)
     x = torch.from_numpy(x_np).to(device)
 
+    heads = [GAT_HEADS] * (len(GAT_DIMS) - 1)
     with torch.no_grad():
-        before = launches_now()
-        out32 = gat_forward(params, g, x)
+        before, scored = launches_now(), gat.vertex_scored_layers
+        out32, dense = dense_calls(lambda: gat_forward(params, g, x))
         counts = launches_since(before)
-    # the banded layer: per layer K band gathers, one banded sum and one
-    # segment reduce (the softmax denominators, all bands and heads), and
-    # no permutation (the fused path permutes its weights into bands)
+    # the banded layer: per layer K band gathers of the rows and K of the
+    # source scores, one banded sum and one segment reduce (the softmax
+    # denominators, all bands and heads), and no permutation (the fused
+    # path permutes its weights into bands)
     want = dict(segment_reduce=2, banded_segment_sum=2, banded_sddmm=0,
-                segment_sum=0, gather_rows=2 * K, apply_fixed_perm=0)
+                segment_sum=0, gather_rows=2 * 2 * K, apply_fixed_perm=0)
     assert counts == want, counts
+    # each layer's slot scores gathered from its vertex scores (K more
+    # row gathers): no cuBLAS call on a band's rows (the product form made
+    # 12 + 2 K)
+    assert dense == gat_dense_calls(GAT_DIMS, heads, False), dense
+    assert gat.vertex_scored_layers - scored == len(heads)
     ref = gat_forward_cpu(
         [{k: v.cpu().numpy() for k, v in p.items()} for p in params], hg,
         x_np)
@@ -1690,23 +1790,27 @@ def phase_gat(hg, g, hg_big, device):
         return gat_train_step(params, opt, g, x, (labels, mask), 1e-2,
                               message_dtype=mdt, attn=attn)
 
-    before = launches_now()
-    _, grads, loss = step("auto")
+    before, scored = launches_now(), gat.vertex_scored_layers
+    (_, grads, loss), dense_step = dense_calls(lambda: step("auto"))
     counts = launches_since(before)
-    # per layer: forward K gathers + 1 sum + 1 segment reduce (the
-    # denominators); backward K gathers + 1 SDDMM (weight cotangent), 2
+    assert dense_step == gat_dense_calls(GAT_DIMS, heads, True), dense_step
+    assert gat.vertex_scored_layers - scored == len(heads)
+    # per layer: forward 2 K gathers (the rows and the source scores) + 1
+    # sum + 1 segment reduce (the denominators); backward K gathers + 1 SDDMM (weight cotangent), 2
     # segment reduces (ds_dst off the pull bands, ds_src off the push
     # bands: each one launch for all bands and heads, where a launch per
     # band and head made H (K + K_b) = 12 a layer), 1 permutation (pull to
     # push bands), K_b gathers + 1 sum (g_h)
     want = dict(segment_reduce=2 * 3, banded_segment_sum=4,
-                banded_sddmm=2, segment_sum=0, gather_rows=2 * (2 * K + K_b),
+                banded_sddmm=2, segment_sum=0, gather_rows=2 * (3 * K + K_b),
                 apply_fixed_perm=2)
     assert counts == want, (
         "a GAT step launches kernel 1 once per layer and direction (all "
         "bands and heads in one launch)", counts)
     log(f"# gat train step launches (banded, native backward): "
-        f"{json.dumps(counts)}")
+        f"{json.dumps(counts)}; cuBLAS calls a forward {dense} and a step "
+        f"{dense_step} (the product form's {dense + 2 * K} and "
+        f"{dense_step + 2 * K})")
     # from zero momentum the new momentum is the gradient itself
     _, grads_f, loss_f = step("fused")
     np.testing.assert_allclose(float(loss), float(loss_f), rtol=1e-5)
@@ -1759,6 +1863,7 @@ def phase_gat(hg, g, hg_big, device):
     profile_gat(g, device)
     with uncounted():
         hold_gat_kernels(f"rmat{SCALE}", g, device)
+        gat_vertex_scores(f"rmat{SCALE}", g, device)
 
     t0 = time.perf_counter()
     g_big = GraphSlice.from_host(hg_big, device=device)

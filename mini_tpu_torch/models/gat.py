@@ -13,9 +13,10 @@ as the GAT paper's deep PPI model does across its middle layer.
 
 ``attn`` picks the attention layer:
 
-* ``"banded"`` (``"auto"`` on CUDA): :func:`_gat_layer_banded`, scores,
-  weights and messages born in banded order from one set of band gathers,
-  one ``banded_segment_sum`` launch, the softmax denominators the
+* ``"banded"`` (``"auto"`` on CUDA): :func:`_gat_layer_banded`, weights
+  and messages born in banded order from one set of band gathers (each
+  slot's source score gathered from the per-vertex scores by the same
+  ids), one ``banded_segment_sum`` launch, the softmax denominators the
   per-segment sums of the weights themselves (one launch of
   :func:`banded_heads_segment_sum`), so a head needs no spare lane in its
   padding.  While a profiler runs the forward is the span ``gat.attn`` and
@@ -34,8 +35,12 @@ as the GAT paper's deep PPI model does across its middle layer.
 * ``"softmax"``: per-segment max and explicit normalization
   (:func:`segment_softmax_by_dst`).
 
-The scores ``xg @ A`` and ``h @ W`` are ``torch.matmul`` in full float32
-(no TF32), as JAX computes them outside any Pallas kernel.
+The products ``h @ W`` and the per-vertex scores ``hw @ a`` are
+``torch.matmul`` in full float32 (no TF32), as JAX computes them outside
+any Pallas kernel.  JAX's banded layer multiplies every gathered row by
+the score projector (a product the TPU's MXU carries); the port gathers
+the per-vertex source scores instead, the same float32 numbers without
+re-reading the rows.
 """
 
 from __future__ import annotations
@@ -72,6 +77,9 @@ from mini_tpu_torch.utils.profiling import scope
 # attention layers that ``auto`` or ``banded`` sent off the banded layer
 # (to the fused path), since the last reset
 fused_layers = 0
+# banded attention layers whose per-slot source scores were gathered from
+# the per-vertex scores, since the last reset
+vertex_scored_layers = 0
 
 
 def _head_pad(n_heads: int, d: int) -> int:
@@ -100,8 +108,7 @@ def _concat_heads(hws, d: int, d_pad: int, ones: bool) -> torch.Tensor:
 def _gat_layer_banded(
     g: GraphSlice,
     hws: list,
-    a_src_l: list,  # per-head [d] attention vectors (score projectors)
-    s_src_l: list,  # per-head [n_pad] vertex src scores (for the bound)
+    s_src_l: list,  # per-head [n_pad] vertex src scores
     s_dst_l: list,  # per-head [n_pad] vertex dst scores
     d: int,
     negative_slope: float,
@@ -110,11 +117,15 @@ def _gat_layer_banded(
     """The banded-native attention layer (JAX ``gat.py:30-165``).
 
     Per band k: the gather ``xg = hw_cat[band k][ids[k]]`` (the
-    ``gather_rows`` kernel), the source scores ``sc = xg @ A`` (A the
-    block-diagonal ``a_src`` projector, zero over the padding), the dst scores expanded by the band's
-    segment ids, the unnormalized weight ``w = exp(LRelu(sc + ed) -
-    LRelu(gmax + ed))`` (``gmax`` the global max of the source scores, an
-    exact stabilizer because LeakyReLU is monotone).  One
+    ``gather_rows`` kernel), the source scores ``sc = s_src[band
+    k][ids[k]]`` gathered from the ``[n_pad, H]`` vertex scores by the same
+    ids and kernel (pad slots take id 0, in range, and weigh 0; the
+    kernel moves a slot's 16 or 24 bytes by a thread, where
+    ``index_select`` spends a block on each), the dst scores
+    expanded by the band's segment ids, the unnormalized weight ``w =
+    exp(LRelu(sc + ed) - LRelu(gmax + ed))`` (``gmax`` the global max of
+    the source scores, an exact stabilizer because LeakyReLU is monotone,
+    so every weight lies in (0, 1]).  One
     ``banded_segment_sum`` folds the messages ``xg * w`` per head block,
     weighing them as it adds them.  Each head's denominator is the
     per-segment sum of its weights as the kernel rounds them (to
@@ -128,25 +139,24 @@ def _gat_layer_banded(
     H]`` denominators.  The caller has checked
     :func:`_banded_layer_supported`.  Not differentiable itself:
     :class:`_GatBandedLayer` is."""
+    global vertex_scored_layers
     H = len(hws)
     d_pad = _head_pad(H, d)
     F = H * d_pad
     layout = get_layout(g, "pull", row_bytes=F * 4)
 
-    # float32 through the gather, so the scores are float32; the messages
-    # are cast to message_dtype after it, and weighted in the kernel
+    # float32 through the gather; the messages are cast to message_dtype
+    # after it, and weighted in the kernel
     hw_cat = _concat_heads(hws, d, d_pad, ones=False)
-    A = hw_cat.new_zeros(F, H)
-    for hd in range(H):
-        A[hd * d_pad: hd * d_pad + d, hd] = a_src_l[hd]
-    s_dst = torch.stack(s_dst_l, dim=-1)  # [n_pad, H]
-    gmax = torch.stack([s.max() for s in s_src_l])
+    s_src = torch.stack(s_src_l, dim=-1)  # [n_pad, H]
+    s_dst = torch.stack(s_dst_l, dim=-1)
+    gmax = s_src.amax(dim=0)
 
     dev = layout.dev(hw_cat.device)
     msgs, w_bands, pos_bands = [], [], []
     for k in range(layout.K):
         xg = gather_rows(_band(hw_cat, layout, k), dev["ids"][k])
-        sc = torch.matmul(xg, A)  # [mk, H]
+        sc = gather_rows(_band(s_src, layout, k), dev["ids"][k])  # [mk, H]
         ed = torch.index_select(s_dst, 0, dev["seg"][k])
         e = F_.leaky_relu(sc + ed, negative_slope)
         bound = F_.leaky_relu(gmax[None, :] + ed, negative_slope)
@@ -162,6 +172,7 @@ def _gat_layer_banded(
     denom = banded_heads_segment_sum(layout, w_sum).clamp(min=1e-30)
     heads = [out[:, hd * d_pad: hd * d_pad + d] / denom[:, hd, None]
              for hd in range(H)]
+    vertex_scored_layers += 1
     return heads, {
         "w_bands": w_bands,
         "pos_bands": pos_bands,
@@ -173,7 +184,7 @@ class _GatBandedLayer(torch.autograd.Function):
     """The banded layer with JAX's native banded backward (``gat.py:358-488``).
 
     Inputs ``g, d, negative_slope, message_dtype, H`` and the H-tuples
-    ``hws, a_src, s_src, s_dst``; outputs the H normalized heads.  The
+    ``hws, s_src, s_dst``; outputs the H normalized heads.  The
     forward saves the per-band weights ``w``, the LeakyReLU sign bits, the
     denominators and the outputs.  With ``q = ct / W`` and ``r = <ct, y> /
     W`` per head, a dst-side matrix ``Q`` of blocks ``[q, 0]`` makes the
@@ -184,22 +195,20 @@ class _GatBandedLayer(torch.autograd.Function):
     cotangent ``g_e = w g_w LRelu'`` is summed per dst off the pull bands
     (``ds_dst``) and per src off the push bands (``ds_src``), the weights
     and ``g_e`` moved to push order by one fixed permutation.  The
-    stabilizer's cotangent is exactly zero, and ``a_src`` gets zero here:
-    its gradient flows through ``s_src = h a_src`` outside."""
+    stabilizer's cotangent is exactly zero; ``a_src`` takes its gradient
+    through ``s_src = h a_src`` outside."""
 
     @staticmethod
     def forward(ctx, g, d, negative_slope, message_dtype, H, *args):
-        hws, a_src_l, s_src_l, s_dst_l = (
-            list(args[i * H:(i + 1) * H]) for i in range(4))
+        hws, s_src_l, s_dst_l = (
+            list(args[i * H:(i + 1) * H]) for i in range(3))
         with scope("gat.attn"):
             heads, aux = _gat_layer_banded(
-                g, hws, a_src_l, s_src_l, s_dst_l, d, negative_slope,
-                message_dtype,
+                g, hws, s_src_l, s_dst_l, d, negative_slope, message_dtype,
             )
         ctx.g, ctx.d, ctx.slope, ctx.mdt, ctx.H = (
             g, d, negative_slope, message_dtype, H)
         ctx.K = len(aux["w_bands"])
-        ctx.a_like = [(a.shape, a.dtype) for a in a_src_l]
         ctx.save_for_backward(*hws, *aux["w_bands"], *aux["pos_bands"],
                               aux["denom"], *heads)
         return tuple(heads)
@@ -262,12 +271,9 @@ class _GatBandedLayer(torch.autograd.Function):
         gx = _apply_banded(go_sd, layout_b, w_push,
                            "split").to(torch.float32)
         g_hws = [gx[:, h * d_pad: h * d_pad + d] for h in range(H)]
-        zeros_a = [torch.zeros(s, dtype=t, device=gx.device)
-                   for s, t in ctx.a_like]
         g_ss = [ds_src[:, h] for h in range(H)]
         g_sd = [ds_dst[:, h] for h in range(H)]
-        return (None, None, None, None, None, *g_hws, *zeros_a, *g_ss,
-                *g_sd)
+        return (None, None, None, None, None, *g_hws, *g_ss, *g_sd)
 
 
 def segment_softmax_by_dst(g: GraphSlice,
@@ -414,7 +420,8 @@ def gat_forward(
     the layers whose input is added to their heads' concat (or mean)
     before the ELU; such a layer's input and output widths must agree.
     Each layer that ``auto`` or ``banded`` cannot run on the banded layer
-    adds one to the module's ``fused_layers``."""
+    adds one to the module's ``fused_layers``; each that runs it, one to
+    ``vertex_scored_layers``."""
     global fused_layers
     if attn not in ("auto", "banded", "fused", "softmax"):
         raise ValueError(f"unknown attn {attn!r}")
@@ -436,8 +443,7 @@ def gat_forward(
         ):
             heads = _GatBandedLayer.apply(
                 g, d, negative_slope, message_dtype, n_heads, *hws,
-                *[layer["a_src"][hd] for hd in range(n_heads)], *s_src_l,
-                *s_dst_l,
+                *s_src_l, *s_dst_l,
             )
         elif attn in ("auto", "banded", "fused"):
             fused_layers += attn != "fused"

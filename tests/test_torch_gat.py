@@ -242,8 +242,16 @@ def test_init_and_layer_choice(monkeypatch):
     hg, _, gt, x, _ = setup(1)
     calls = []
     real = tgat._GatBandedLayer.apply
-    monkeypatch.setattr(tgat._GatBandedLayer, "apply",
-                        lambda *a: calls.append(1) or real(*a))
+
+    def apply(*a):
+        # g, d, slope, message dtype, H, then H each of hw, s_src, s_dst:
+        # per-vertex tensors only, no a_src vector
+        assert len(a) == 5 + 3 * a[4]
+        assert all(t.shape[0] == a[0].n_pad for t in a[5:])
+        calls.append(1)
+        return real(*a)
+
+    monkeypatch.setattr(tgat._GatBandedLayer, "apply", apply)
     xt = torch.from_numpy(x)
     tgat.gat_forward(p1, gt, xt)
     assert calls == []

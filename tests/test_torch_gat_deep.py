@@ -67,8 +67,16 @@ def _port(monkeypatch, g, params, x, c, attn):
     monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", SMALL_TABLE)
     calls = []
     real = tgat._GatBandedLayer.apply
-    monkeypatch.setattr(tgat._GatBandedLayer, "apply",
-                        lambda *a: calls.append(a[1]) or real(*a))
+
+    def apply(*a):
+        # g, d, slope, message dtype, H, then H each of hw, s_src, s_dst:
+        # per-vertex tensors only, no a_src vector
+        assert len(a) == 5 + 3 * a[4]
+        assert all(t.shape[0] == g.n_pad for t in a[5:])
+        calls.append(a[1])
+        return real(*a)
+
+    monkeypatch.setattr(tgat._GatBandedLayer, "apply", apply)
     leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
               for p in params]
     before = tgat.fused_layers
@@ -194,6 +202,78 @@ def test_bf16_messages_at_the_new_widths(monkeypatch, graph, case):
     assert all(torch.isfinite(gr).all() for gr in g16)
 
 
+def _watch_the_layer(monkeypatch):
+    """Spies on ``torch.matmul`` as ``models.gat`` sees it and on
+    ``_gat_layer_banded``: the shapes of the first operands of the
+    products called inside the layer and outside it, and each layer's
+    per-band weights with the layout's valid-slot masks."""
+    seen = {"inside": [], "outside": [], "weights": []}
+    depth = [0]
+    real_mm, real_layer = tgat.torch.matmul, tgat._gat_layer_banded
+
+    def matmul(a, *rest, **kw):
+        seen["inside" if depth[0] else "outside"].append(tuple(a.shape))
+        return real_mm(a, *rest, **kw)
+
+    def layer(g, hws, s_src_l, s_dst_l, d, *rest):
+        depth[0] += 1
+        try:
+            heads, aux = real_layer(g, hws, s_src_l, s_dst_l, d, *rest)
+        finally:
+            depth[0] -= 1
+        H = len(hws)
+        lay = tbanded.get_layout(g, "pull",
+                                 row_bytes=H * tgat._head_pad(H, d) * 4)
+        seen["weights"].append(list(zip(aux["w_bands"],
+                                        lay.dev("cpu")["valid"])))
+        return heads, aux
+
+    monkeypatch.setattr(tgat.torch, "matmul", matmul)
+    monkeypatch.setattr(tgat, "_gat_layer_banded", layer)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["no_lane", "no_lane_no_skip"])
+def test_banded_layer_gathers_the_vertex_scores(monkeypatch, graph, case):
+    """At widths with no spare lane, with and without the skip, the banded
+    layer takes each slot's source score from the per-vertex scores: no
+    ``torch.matmul`` runs inside it (outside it each head's ``h @ W``
+    does), every unnormalized weight of a real slot lies in (0, 1] and a
+    pad slot's is 0, and ``vertex_scored_layers`` rises by one a layer in
+    the forward and not at all in the backward."""
+    c, params, x, _, g = _case(graph, case)
+    seen = _watch_the_layer(monkeypatch)
+    before = tgat.vertex_scored_layers
+    out, leaves, banded = _port(monkeypatch, g, params, x, c, "banded")
+    L = len(c["heads"])
+    assert len(banded) == L
+    assert tgat.vertex_scored_layers - before == L
+    torch.autograd.grad(out.square().sum(),
+                        [v for p in leaves for v in p.values()])
+    assert tgat.vertex_scored_layers - before == L
+    assert seen["inside"] == []
+    assert len(seen["outside"]) == sum(c["heads"])
+    assert len(seen["weights"]) == L
+    for bands in seen["weights"]:
+        assert len(bands) == 3
+        for w, valid in bands:
+            assert bool((w[valid] > 0).all() and (w[valid] <= 1).all())
+            assert bool((w[~valid] == 0).all())
+
+
+@pytest.mark.parametrize("attn", ["fused", "auto"])
+def test_vertex_scored_layers_stays_put_off_the_banded_layer(
+        monkeypatch, graph, attn):
+    """The fused path, asked for or taken by ``auto`` on the CPU, gathers
+    no vertex scores into bands and counts no layer."""
+    monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", SMALL_TABLE)
+    c, params, x, _, g = _case(graph, "no_lane")
+    before = tgat.vertex_scored_layers
+    tgat.gat_forward(params, g, _padded(x, g.n_pad), SLOPE, attn=attn,
+                     skip=c["skip"])
+    assert tgat.vertex_scored_layers == before
+
+
 def test_init_takes_heads_a_layer():
     """``gat_init`` with one count a layer: each layer's ``w`` is ``[H_i,
     fan_in, d]``, a hidden layer's input the previous heads times its
@@ -254,8 +334,9 @@ def card_inputs():
 def test_three_steps_on_the_card_match_the_reference(monkeypatch,
                                                      card_inputs, case):
     """``attn="auto"`` on the card: every layer on the banded layer (its
-    CUDA kernels, several bands), three steps against the float64
-    reference within the CPU test's tolerances."""
+    CUDA kernels, several bands, each layer's slot scores gathered from
+    its vertex scores), three steps against the float64 reference within
+    the CPU test's tolerances."""
     monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", 1 << 20)
     inputs, (src, dst) = card_inputs
     hg = tg.from_edges(src.cpu().numpy(), dst.cpu().numpy(), None,
@@ -268,12 +349,13 @@ def test_three_steps_on_the_card_match_the_reference(monkeypatch,
     batch = (_padded(inputs["labels"], g.n_pad),
              _padded(inputs["train_mask"], g.n_pad, False))
     p, o, losses = params, tgat.gat_init_opt(params), []
-    before = tgat.fused_layers
+    before, scored = tgat.fused_layers, tgat.vertex_scored_layers
     for _ in range(3):
         p, o, loss = tgat.gat_train_step(p, o, g, _padded(x, g.n_pad), batch,
                                          LR, SLOPE, skip=c["skip"])
         losses.append(float(loss))
     assert tgat.fused_layers == before
+    assert tgat.vertex_scored_layers - scored == 3 * len(c["heads"])
     want = ref.train([{k: v.double() for k, v in q.items()} for q in params],
                      ref.Edges(src, dst, inputs["n"]), x.double(),
                      inputs["labels"], inputs["train_mask"], LR, MOMENTUM,
