@@ -363,7 +363,7 @@ def phase_kernels(g, hg_big, device):
     function, that call."""
     import torch
 
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
 
@@ -372,7 +372,7 @@ def phase_kernels(g, hg_big, device):
 
     stats["segment_reduce"] = check_segment_reduce(g, hg_big, rng, device)
 
-    layout = get_layout(g, "pull", row_bytes=F_HID * 4)
+    layout = layout_for(g, "pull", F_HID)
     dev = layout.dev(device)
     err2, t2 = 0.0, None
     for F in (F_HID, F_OUT):
@@ -513,7 +513,7 @@ def check_segment_reduce(g, hg_big, rng, device):
     import torch
 
     from mini_tpu_torch.graph import GraphSlice, from_edges
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.ops.kernels import _build
     from mini_tpu_torch.ops.kernels import segreduce_kernel as k1
     from mini_tpu_torch.ops.kernels import spmm_banded as k2
@@ -600,7 +600,7 @@ def check_segment_reduce(g, hg_big, rng, device):
     # GAT's per-head score cotangent: K bands of [mk, 2] in one launch
     H = GAT_HEADS
     for direction in ("pull", "push"):
-        lay = get_layout(g, direction, row_bytes=F_HID * 4)
+        lay = layout_for(g, direction, F_HID)
         dev = lay.dev(device)
         bands = [reduce_values(rng, (len(i), H), torch.float32, device)
                  for i in lay.ids]
@@ -965,7 +965,7 @@ def check_permute(g, rng, device):
     payload."""
     import torch
 
-    from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
+    from mini_tpu_torch.graph.banded import get_pull_to_push_rank, layout_for
     from mini_tpu_torch.ops.kernels import permute_kernel as kp
 
     def inverse_of(r):
@@ -975,8 +975,8 @@ def check_permute(g, rng, device):
 
     m = 1 << 21
     rank = torch.from_numpy(rng.permutation(m).astype(np.int32)).to(device)
-    lays = (get_layout(g, "pull", row_bytes=F_HID * 4),
-            get_layout(g, "push", row_bytes=F_HID * 4))
+    lays = (layout_for(g, "pull", F_HID),
+            layout_for(g, "push", F_HID))
     comp = get_pull_to_push_rank(g, *lays)
     assert torch.equal(inverse_of(comp),
                        get_pull_to_push_rank(g, *lays, inverse=True))
@@ -1242,7 +1242,7 @@ def phase_bfs(hg, g, device):
 def phase_gcn(name, hg, g, device):
     import torch
 
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.models.gcn import (
         gcn_forward, gcn_forward_cpu, gcn_init, gcn_normalize,
     )
@@ -1251,7 +1251,7 @@ def phase_gcn(name, hg, g, device):
     from mini_tpu_torch.utils.timing import time_fn
 
     norm = gcn_normalize(g)
-    K = get_layout(g, "pull", row_bytes=F_HID * 4).K
+    K = layout_for(g, "pull", F_HID).K
     params = gcn_init(torch.Generator().manual_seed(0),
                       [F_IN, F_HID, F_OUT], device=device)
     x_np = np.random.RandomState(0).rand(g.n_pad, F_IN).astype(np.float32)
@@ -1603,7 +1603,7 @@ def hold_gat_kernels(label, g, device):
     takes at that width (:func:`sddmm_case`)."""
     import torch
 
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.models.gat import _head_pad
 
     rng = np.random.RandomState(0)
@@ -1611,7 +1611,7 @@ def hold_gat_kernels(label, g, device):
     for H, d in GAT_CELL_HEADS:
         F = H * _head_pad(H, d)
         for direction in ("pull", "push"):
-            lay = get_layout(g, direction, row_bytes=F * 4)
+            lay = layout_for(g, direction, F)
             dev = lay.dev(device)
             at = f"{label} {direction} K={lay.K} F={F} H={H}"
             # the layer's weights lie in (0, 1]
@@ -1646,7 +1646,7 @@ def gat_vertex_scores(label, g, device) -> None:
     score, within :data:`SCORE_TOL`."""
     import torch
 
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.models.gat import _concat_heads, _head_pad
     from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
     from mini_tpu_torch.ops.spmm import _band
@@ -1655,7 +1655,7 @@ def gat_vertex_scores(label, g, device) -> None:
     for H, d in GAT_CELL_HEADS:
         d_pad = _head_pad(H, d)
         F = H * d_pad
-        lay = get_layout(g, "pull", row_bytes=F * 4)
+        lay = layout_for(g, "pull", F)
         dev = lay.dev(device)
         hws = [torch.randn(lay.n_pad, d, device=device, generator=gen)
                for _ in range(H)]
@@ -1701,7 +1701,6 @@ def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
                                   (labels, mask), 1e-2, attn=attn, skip=skip)
 
     before, fused = launches_now(), gat.fused_layers
-    scored = gat.vertex_scored_layers
     (_, grads, loss), dense = dense_calls(lambda: step("auto"))
     counts = launches_since(before)
     L = len(heads)
@@ -1710,7 +1709,6 @@ def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
                 apply_fixed_perm=L)
     assert counts == want, counts
     assert gat.fused_layers == fused, "a no-lane layer left the banded path"
-    assert gat.vertex_scored_layers - scored == L
     assert dense == gat_dense_calls(dims, heads, True), dense
     _, grads_f, loss_f = step("fused")
     np.testing.assert_allclose(float(loss), float(loss_f), rtol=1e-5)
@@ -1732,16 +1730,15 @@ def phase_gat(hg, g, hg_big, device):
     import torch
 
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi
-    from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
-    from mini_tpu_torch.models import gat
+    from mini_tpu_torch.graph.banded import get_pull_to_push_rank, layout_for
     from mini_tpu_torch.models.gat import (
         gat_forward, gat_forward_cpu, gat_init, gat_init_opt, gat_train_step,
     )
     from mini_tpu_torch.utils.timing import time_fn
 
     F = GAT_HEADS * 64  # two heads of 32, each padded to 64 columns
-    K = get_layout(g, "pull", row_bytes=F * 4).K
-    K_b = get_layout(g, "push", row_bytes=F * 4).K
+    K = layout_for(g, "pull", F).K
+    K_b = layout_for(g, "push", F).K
     params = gat_init(torch.Generator().manual_seed(0), GAT_DIMS,
                       heads=GAT_HEADS, device=device)
     x_np = np.random.RandomState(0).rand(g.n_pad, F_IN).astype(np.float32)
@@ -1749,7 +1746,7 @@ def phase_gat(hg, g, hg_big, device):
 
     heads = [GAT_HEADS] * (len(GAT_DIMS) - 1)
     with torch.no_grad():
-        before, scored = launches_now(), gat.vertex_scored_layers
+        before = launches_now()
         out32, dense = dense_calls(lambda: gat_forward(params, g, x))
         counts = launches_since(before)
     # the banded layer: per layer K band gathers of the rows and K of the
@@ -1763,7 +1760,6 @@ def phase_gat(hg, g, hg_big, device):
     # row gathers): no cuBLAS call on a band's rows (the product form made
     # 12 + 2 K)
     assert dense == gat_dense_calls(GAT_DIMS, heads, False), dense
-    assert gat.vertex_scored_layers - scored == len(heads)
     ref = gat_forward_cpu(
         [{k: v.cpu().numpy() for k, v in p.items()} for p in params], hg,
         x_np)
@@ -1790,11 +1786,10 @@ def phase_gat(hg, g, hg_big, device):
         return gat_train_step(params, opt, g, x, (labels, mask), 1e-2,
                               message_dtype=mdt, attn=attn)
 
-    before, scored = launches_now(), gat.vertex_scored_layers
+    before = launches_now()
     (_, grads, loss), dense_step = dense_calls(lambda: step("auto"))
     counts = launches_since(before)
     assert dense_step == gat_dense_calls(GAT_DIMS, heads, True), dense_step
-    assert gat.vertex_scored_layers - scored == len(heads)
     # per layer: forward 2 K gathers (the rows and the source scores) + 1
     # sum + 1 segment reduce (the denominators); backward K gathers + 1 SDDMM (weight cotangent), 2
     # segment reduces (ds_dst off the pull bands, ds_src off the push
@@ -1867,8 +1862,8 @@ def phase_gat(hg, g, hg_big, device):
 
     t0 = time.perf_counter()
     g_big = GraphSlice.from_host(hg_big, device=device)
-    lp = get_layout(g_big, "pull", row_bytes=F * 4)
-    lb = get_layout(g_big, "push", row_bytes=F * 4)
+    lp = layout_for(g_big, "pull", F)
+    lb = layout_for(g_big, "push", F)
     get_pull_to_push_rank(g_big, lp, lb)
     build_s = time.perf_counter() - t0
     log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (device graph, "
@@ -1915,7 +1910,7 @@ def phase_sage(g, device):
     import torch
 
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.models.sage import (
         sage_forward, sage_forward_cpu, sage_init, sage_init_opt, sage_loss,
         sage_train_step,
@@ -1958,8 +1953,8 @@ def phase_sage(g, device):
     log(f"# sage rmat{SCALE} banded vs xla: forward allclose (rtol 1e-4), "
         f"grads max err/max|xla| {err:.3g} (bound {GRAD_TOL})")
 
-    K = get_layout(g, "pull", row_bytes=F_HID * 4).K
-    K_b = get_layout(g, "push", row_bytes=F_HID * 4).K
+    K = layout_for(g, "pull", F_HID).K
+    K_b = layout_for(g, "push", F_HID).K
     opt = sage_init_opt(params)
 
     def step(impl):
@@ -2733,13 +2728,13 @@ def hold_gcn_kernels(label, gs, dims, device):
     gather bitwise."""
     import torch
 
-    from mini_tpu_torch.graph.banded import get_layout
+    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.ops.kernels import gather_rows as kg
 
     rng = np.random.RandomState(0)
     worst = 0.0
     for direction in ("pull", "push"):
-        layout = get_layout(gs, direction, row_bytes=128 * 4)
+        layout = layout_for(gs, direction, 128)
         dev = layout.dev(device)
         for F in sorted(set(dims[1:])):
             msgs, w = band_messages(layout, dev, F, torch.float32, rng,

@@ -384,3 +384,14 @@ def get_layout(
             raise ValueError(f"unknown direction {direction!r}")
     _lru_touch(_LAYOUT_CACHE, key, MAX_LAYOUTS)
     return _LAYOUT_CACHE[key]
+
+
+def layout_for(g, direction: str, width: int) -> Optional[BandedLayout]:
+    """The banded layout of rows ``width`` columns wide: the one the SpMM,
+    the SDDMM, GAT's banded layer and ``gcn_normalize`` all take.
+
+    Band height follows the lane-padded float32 row (``width`` rounded up
+    to 128 columns of 4 bytes), whatever the rows' dtype, so one layout,
+    and the weights pre-banded on it, serves float32 and bf16 rows and
+    every width up to the next multiple of 128."""
+    return get_layout(g, direction, row_bytes=-(-width // 128) * 128 * 4)

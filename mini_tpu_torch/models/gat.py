@@ -14,9 +14,10 @@ as the GAT paper's deep PPI model does across its middle layer.
 ``attn`` picks the attention layer:
 
 * ``"banded"`` (``"auto"`` on CUDA): :func:`_gat_layer_banded`, weights
-  and messages born in banded order from one set of band gathers (each
-  slot's source score gathered from the per-vertex scores by the same
-  ids), one ``banded_segment_sum`` launch, the softmax denominators the
+  born in banded order (each slot's source score gathered from the
+  per-vertex scores by the band's ids), the messages aggregated by the
+  banded SpMM's own route (``ops/spmm._apply_banded``: the band gathers,
+  one ``banded_segment_sum`` launch), the softmax denominators the
   per-segment sums of the weights themselves (one launch of
   :func:`banded_heads_segment_sum`), so a head needs no spare lane in its
   padding.  While a profiler runs the forward is the span ``gat.attn`` and
@@ -45,6 +46,7 @@ re-reading the rows.
 
 from __future__ import annotations
 
+import importlib
 import math
 from typing import Sequence
 
@@ -52,7 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F_
 
-from mini_tpu_torch.graph.banded import get_layout, get_pull_to_push_rank
+from mini_tpu_torch.graph.banded import get_pull_to_push_rank, layout_for
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.models._sgd import init_opt, sgd_momentum_step
 from mini_tpu_torch.models.gcn import params_from_jax  # noqa: F401
@@ -61,25 +63,19 @@ from mini_tpu_torch.ops.engine import (
     reduce_csc_by_dst,
     src_vals_to_csc,
 )
-from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
-from mini_tpu_torch.ops.kernels.spmm_banded import banded_segment_sum
 from mini_tpu_torch.ops.permute import permute_rows
-from mini_tpu_torch.ops.spmm import (
-    _apply_banded,
-    _band,
-    _weight_cotangent,
-    banded_heads_segment_sum,
-    spmm,
-)
+from mini_tpu_torch.ops.spmm import banded_heads_segment_sum, spmm
 from mini_tpu_torch.utils.device import resolve_device
 from mini_tpu_torch.utils.profiling import scope
+
+# the module, looked up at each call, so that one patch of its
+# ``_apply_banded`` reroutes every kernel-2 launch of GCN and GAT alike
+# (``ops/__init__`` exports the function ``spmm`` under the module's name)
+spmm_ops = importlib.import_module("mini_tpu_torch.ops.spmm")
 
 # attention layers that ``auto`` or ``banded`` sent off the banded layer
 # (to the fused path), since the last reset
 fused_layers = 0
-# banded attention layers whose per-slot source scores were gathered from
-# the per-vertex scores, since the last reset
-vertex_scored_layers = 0
 
 
 def _head_pad(n_heads: int, d: int) -> int:
@@ -116,63 +112,54 @@ def _gat_layer_banded(
 ):
     """The banded-native attention layer (JAX ``gat.py:30-165``).
 
-    Per band k: the gather ``xg = hw_cat[band k][ids[k]]`` (the
-    ``gather_rows`` kernel), the source scores ``sc = s_src[band
-    k][ids[k]]`` gathered from the ``[n_pad, H]`` vertex scores by the same
-    ids and kernel (pad slots take id 0, in range, and weigh 0; the
-    kernel moves a slot's 16 or 24 bytes by a thread, where
-    ``index_select`` spends a block on each), the dst scores
-    expanded by the band's segment ids, the unnormalized weight ``w =
-    exp(LRelu(sc + ed) - LRelu(gmax + ed))`` (``gmax`` the global max of
-    the source scores, an exact stabilizer because LeakyReLU is monotone,
-    so every weight lies in (0, 1]).  One
-    ``banded_segment_sum`` folds the messages ``xg * w`` per head block,
-    weighing them as it adds them.  Each head's denominator is the
-    per-segment sum of its weights as the kernel rounds them (to
-    ``message_dtype`` first), by one launch of
-    :func:`banded_heads_segment_sum` over the K ``[mk, H]`` bands: no
-    column of the messages carries it, so a head's padding may be empty
-    (``_head_pad(H, d) == d``).
+    Per band k: the source scores ``sc = s_src[band k][ids[k]]`` gathered
+    from the ``[n_pad, H]`` vertex scores (``ops/spmm._gather_bands``; pad
+    slots take id 0, in range, and weigh 0; the kernel moves a slot's 16
+    or 24 bytes by a thread, where ``index_select`` spends a block on
+    each), the dst scores expanded by the band's segment ids, the
+    unnormalized weight ``w = exp(LRelu(sc + ed) - LRelu(gmax + ed))``
+    (``gmax`` the global max of the source scores, an exact stabilizer
+    because LeakyReLU is monotone, so every weight lies in (0, 1]).  The
+    head concat, cast to ``message_dtype``, then runs the banded SpMM's
+    aggregation (``ops/spmm._apply_banded``): the band gathers and one
+    ``banded_segment_sum``, which weighs each head block by its ``w``
+    column as it adds it.  Each head's denominator is the per-segment sum
+    of its weights as the kernel rounds them (to ``message_dtype``
+    first), by one launch of :func:`banded_heads_segment_sum` over the K
+    ``[mk, H]`` bands: no column of the messages carries it, so a head's
+    padding may be empty (``_head_pad(H, d) == d``).
 
     Returns the per-head normalized outputs and the residuals of the
     backward: the per-band ``w`` and LeakyReLU sign bits and the ``[n_pad,
     H]`` denominators.  The caller has checked
     :func:`_banded_layer_supported`.  Not differentiable itself:
     :class:`_GatBandedLayer` is."""
-    global vertex_scored_layers
     H = len(hws)
     d_pad = _head_pad(H, d)
-    F = H * d_pad
-    layout = get_layout(g, "pull", row_bytes=F * 4)
-
-    # float32 through the gather; the messages are cast to message_dtype
-    # after it, and weighted in the kernel
-    hw_cat = _concat_heads(hws, d, d_pad, ones=False)
+    layout = layout_for(g, "pull", H * d_pad)
     s_src = torch.stack(s_src_l, dim=-1)  # [n_pad, H]
     s_dst = torch.stack(s_dst_l, dim=-1)
     gmax = s_src.amax(dim=0)
-
-    dev = layout.dev(hw_cat.device)
-    msgs, w_bands, pos_bands = [], [], []
-    for k in range(layout.K):
-        xg = gather_rows(_band(hw_cat, layout, k), dev["ids"][k])
-        sc = gather_rows(_band(s_src, layout, k), dev["ids"][k])  # [mk, H]
-        ed = torch.index_select(s_dst, 0, dev["seg"][k])
+    dev = layout.dev(s_src.device)
+    w_bands, pos_bands = [], []
+    for sc, seg, valid in zip(
+            spmm_ops._gather_bands(s_src, layout, "split"), dev["seg"],
+            dev["valid"]):  # sc: [mk, H]
+        ed = torch.index_select(s_dst, 0, seg)
         e = F_.leaky_relu(sc + ed, negative_slope)
         bound = F_.leaky_relu(gmax[None, :] + ed, negative_slope)
-        w = torch.where(dev["valid"][k][:, None], torch.exp(e - bound), 0.0)
-        w_bands.append(w)
+        w_bands.append(torch.where(valid[:, None], torch.exp(e - bound), 0.0))
         pos_bands.append(sc + ed > 0)  # LeakyReLU' sign bits
-        msgs.append(xg if message_dtype is None else xg.to(message_dtype))
-    out = banded_segment_sum(dev["bounds"], dev["offs2d"], msgs,
-                             precision="split", edge_chunk=layout.edge_chunk,
-                             row_prefix=dev["row_prefix"], weights=w_bands)
+
+    hw_cat = _concat_heads(hws, d, d_pad, ones=False)
+    if message_dtype is not None:
+        hw_cat = hw_cat.to(message_dtype)
+    out = spmm_ops._apply_banded(hw_cat, layout, w_bands, "split")
     w_sum = (w_bands if message_dtype is None
              else [w.to(message_dtype).float() for w in w_bands])
     denom = banded_heads_segment_sum(layout, w_sum).clamp(min=1e-30)
     heads = [out[:, hd * d_pad: hd * d_pad + d] / denom[:, hd, None]
              for hd in range(H)]
-    vertex_scored_layers += 1
     return heads, {
         "w_bands": w_bands,
         "pos_bands": pos_bands,
@@ -228,21 +215,21 @@ class _GatBandedLayer(torch.autograd.Function):
         denom = saved[H + 2 * K]
         ys = saved[H + 2 * K + 1:]
         d_pad = _head_pad(H, d)
-        F = H * d_pad
-        layout = get_layout(g, "pull", row_bytes=F * 4)
-        layout_b = get_layout(g, "push", row_bytes=F * 4)
+        layout = layout_for(g, "pull", H * d_pad)
+        layout_b = layout_for(g, "push", H * d_pad)
         comp = get_pull_to_push_rank(g, layout, layout_b)
         dev = layout.dev(hws[0].device)
 
         Q = _concat_heads([c / denom[:, h, None] for h, c in enumerate(ct)],
-                          d, d_pad, ones=False)  # [n_pad, F] float32
+                          d, d_pad, ones=False)  # [n_pad, H d_pad] float32
         r = torch.stack([(c * y).sum(-1) for c, y in zip(ct, ys)],
                         dim=-1) / denom  # [n_pad, H]
         hw_cat = _concat_heads(hws, d, d_pad, ones=False)
         x_sd = hw_cat if mdt is None else hw_cat.to(mdt)
-        gw_bands = [gw - torch.index_select(r, 0, seg) for gw, seg in zip(
-            _weight_cotangent(x_sd, Q, layout, "split", heads=H),
-            dev["seg"])]
+        # [mk, H] per band; the SDDMM gives one head's as [mk]
+        gw_bands = [gw.view(-1, H) - torch.index_select(r, 0, seg)
+                    for gw, seg in zip(spmm_ops._weight_cotangent(
+                        x_sd, Q, layout, "split", heads=H), dev["seg"])]
 
         # the score chain from the residuals: g_e = w g_w LRelu'
         g_bands = [
@@ -268,8 +255,8 @@ class _GatBandedLayer(torch.autograd.Function):
         ds_src = banded_heads_segment_sum(layout_b, g_push)
 
         go_sd = Q if mdt is None else Q.to(mdt)
-        gx = _apply_banded(go_sd, layout_b, w_push,
-                           "split").to(torch.float32)
+        gx = spmm_ops._apply_banded(go_sd, layout_b, w_push,
+                                    "split").to(torch.float32)
         g_hws = [gx[:, h * d_pad: h * d_pad + d] for h in range(H)]
         g_ss = [ds_src[:, h] for h in range(H)]
         g_sd = [ds_dst[:, h] for h in range(H)]
@@ -306,38 +293,24 @@ def _gat_fused_heads(
     sum), a divide per vertex.  Returns the tuple of normalized heads."""
     n_heads = len(hws)
     mask = g.edge_mask_csc
-    e_src = src_vals_to_csc(g, *s_src_l)
-    if n_heads == 1:
-        e_src = (e_src,)
     ws = []
-    for hd in range(n_heads):
-        ed = dst_vals_to_csc(g, s_dst_l[hd])
-        e = F_.leaky_relu(e_src[hd] + ed, negative_slope)
-        bound = F_.leaky_relu(s_src_l[hd].max() + ed, negative_slope)
+    for s_src, s_dst in zip(s_src_l, s_dst_l):
+        ed = dst_vals_to_csc(g, s_dst)
+        e = F_.leaky_relu(src_vals_to_csc(g, s_src) + ed, negative_slope)
+        bound = F_.leaky_relu(s_src.max() + ed, negative_slope)
         ws.append(torch.where(mask, torch.exp(e - bound), 0.0))
     alpha = torch.stack(ws, dim=-1)  # unnormalized, in (0, 1]
 
-    if n_heads == 1:
-        f = hws[0].shape[-1]
-        fp = -(-f // 128) * 128
-        ones_col = fp > f  # the denominator rides the padding
-        hw_p = _concat_heads(hws, f, fp, ones=ones_col)
-        if message_dtype is not None:
-            hw_p = hw_p.to(message_dtype)
-        out = spmm(g, hw_p, direction="pull",
-                   weights=alpha[:, 0]).to(torch.float32)
-        denom = (out[:, f] if ones_col
-                 else reduce_csc_by_dst(g, alpha[:, 0], "sum"))
-        return (out[:, :f] / denom.clamp(min=1e-30)[:, None],)
-
     # all heads in one blockwise SpMM: each head padded so the concat is
-    # a multiple of 128 columns
+    # a multiple of 128 columns, the denominator in the padding's first
+    # column where there is one
     d_pad = _head_pad(n_heads, d)
     ones_col = d_pad > d
     hw_cat = _concat_heads(hws, d, d_pad, ones=ones_col)
     if message_dtype is not None:
         hw_cat = hw_cat.to(message_dtype)
-    out = spmm(g, hw_cat, direction="pull", weights=alpha,
+    # one head's weights go in as spmm's [m_pad] scalar weights
+    out = spmm(g, hw_cat, direction="pull", weights=alpha.squeeze(-1),
                heads=n_heads).to(torch.float32)
     heads = []
     for hd in range(n_heads):
@@ -356,8 +329,7 @@ def _banded_layer_supported(
     fail, ``auto`` and ``banded`` take the fused path."""
     if not (_on_card(g) or force):
         return False
-    d_pad = _head_pad(n_heads, d)
-    layout = get_layout(g, "pull", row_bytes=n_heads * d_pad * 4)
+    layout = layout_for(g, "pull", n_heads * _head_pad(n_heads, d))
     if layout is None:
         return False
     return n_rows == layout.n_pad
@@ -420,8 +392,7 @@ def gat_forward(
     the layers whose input is added to their heads' concat (or mean)
     before the ELU; such a layer's input and output widths must agree.
     Each layer that ``auto`` or ``banded`` cannot run on the banded layer
-    adds one to the module's ``fused_layers``; each that runs it, one to
-    ``vertex_scored_layers``."""
+    adds one to the module's ``fused_layers``."""
     global fused_layers
     if attn not in ("auto", "banded", "fused", "softmax"):
         raise ValueError(f"unknown attn {attn!r}")
@@ -470,9 +441,7 @@ def _softmax_heads(g, hws, s_src_l, s_dst_l, d, negative_slope,
     """The explicit-softmax layer: per-edge scores, the exact per-segment
     softmax, then a plain weighted SpMM of all heads."""
     n_heads = len(hws)
-    e_src = src_vals_to_csc(g, *s_src_l)
-    if n_heads == 1:
-        e_src = (e_src,)
+    e_src = [src_vals_to_csc(g, s) for s in s_src_l]
     if batch_softmax:
         s_dst = torch.stack(s_dst_l, dim=-1)
         e = torch.stack(e_src, dim=-1) + dst_vals_to_csc(g, s_dst)
@@ -487,20 +456,12 @@ def _softmax_heads(g, hws, s_src_l, s_dst_l, d, negative_slope,
         ], dim=-1)
 
     # the weights are normalized: a plain weighted SpMM
-    if n_heads == 1:
-        f = hws[0].shape[-1]
-        fp = -(-f // 128) * 128
-        hw_p = _concat_heads(hws, f, fp, ones=False)
-        if message_dtype is not None:
-            hw_p = hw_p.to(message_dtype)
-        out = spmm(g, hw_p, direction="pull",
-                   weights=alpha[:, 0]).to(torch.float32)
-        return [out[:, :f]]
     d_pad = _head_pad(n_heads, d)
     hw_cat = _concat_heads(hws, d, d_pad, ones=False)
     if message_dtype is not None:
         hw_cat = hw_cat.to(message_dtype)
-    out = spmm(g, hw_cat, direction="pull", weights=alpha,
+    # one head's weights go in as spmm's [m_pad] scalar weights
+    out = spmm(g, hw_cat, direction="pull", weights=alpha.squeeze(-1),
                heads=n_heads).to(torch.float32)
     return [out[:, hd * d_pad: hd * d_pad + d] for hd in range(n_heads)]
 

@@ -24,7 +24,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from mini_tpu_torch.graph.banded import get_layout
+from mini_tpu_torch.graph.banded import layout_for
 from mini_tpu_torch.graph.csr import GraphSlice, HostGraph
 from mini_tpu_torch.models._sgd import init_opt, sgd_momentum_step
 from mini_tpu_torch.ops.spmm import spmm
@@ -57,8 +57,9 @@ def gcn_normalize(g: GraphSlice, band_for_f: int = 128) -> GCNNorm:
 
     For undirected graphs in/out degrees coincide; for directed graphs this
     is the standard pull-aggregation normalization.  ``band_for_f`` sizes
-    the banded layout the weights are pre-reordered into; the SpMM uses the
-    same layout for every F up to the next multiple of 128.
+    the banded layout the weights are pre-reordered into: ``layout_for``'s
+    at that width, the one the SpMM takes for every F up to the next
+    multiple of 128.
     """
     real = g.vertex_mask()
     deg_hat = torch.where(real, g.in_degrees + 1, 1).to(torch.float32)
@@ -68,8 +69,8 @@ def gcn_normalize(g: GraphSlice, band_for_f: int = 128) -> GCNNorm:
     self_coeff = torch.where(real, 1.0 / deg_hat, 0.0)
 
     banded_pull = banded_push = None
-    lp = get_layout(g, "pull", row_bytes=band_for_f * 4)
-    lb = get_layout(g, "push", row_bytes=band_for_f * 4)
+    lp = layout_for(g, "pull", band_for_f)
+    lb = layout_for(g, "push", band_for_f)
     if lp is not None:
         banded_pull = tuple(lp.permute_to_bands(w))
     if lb is not None:

@@ -36,7 +36,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from mini_tpu_torch.graph.banded import BandedLayout, get_layout
+from mini_tpu_torch.graph.banded import BandedLayout, layout_for
 from mini_tpu_torch.graph.csr import GraphSlice
 from mini_tpu_torch.ops.kernels.gather_rows import gather_rows
 from mini_tpu_torch.ops.kernels.segreduce_kernel import segment_reduce_bands
@@ -176,7 +176,8 @@ def _apply_banded(x, layout: BandedLayout, w_list, precision):
     gathers of the unweighted messages, then the banded kernel, which
     weighs each message as it adds it.  ``w_list``: K per-band weight
     tensors in the layout's order (``[mk]``, or ``[mk, H]`` per-head
-    columns, which fixes ``heads``)."""
+    columns, which fixes ``heads``).  The one route to kernel 2: the
+    SpMM's forward and backward and GAT's banded layer all call it."""
     bands = _gather_bands(x, layout, precision)
     dev = layout.dev(x.device)
     with scope("spmm.banded_kernel"):
@@ -274,12 +275,7 @@ def _other_order(g: GraphSlice, direction: str, w: torch.Tensor):
 def _spmm_banded(g, x, direction, weights, weights_banded,
                  weights_banded_bwd, precision, heads=1):
     global rebanded
-    # band height follows the lane-padded float32 row, whatever x's dtype
-    # and width: one layout (and the weights pre-banded on it) serves the
-    # float32 and bf16 paths and every F up to the next multiple of 128
-    F = x.shape[-1]
-    row_bytes = ((F + 127) // 128) * 128 * 4
-    layout = get_layout(g, direction, row_bytes=row_bytes)
+    layout = layout_for(g, direction, x.shape[-1])
     if layout is None:
         raise ValueError(
             "this GraphSlice has no banded layout (it was not built by "
@@ -288,7 +284,7 @@ def _spmm_banded(g, x, direction, weights, weights_banded,
     if x.shape[0] != layout.n_pad:
         raise ValueError(f"x has {x.shape[0]} rows, the graph {layout.n_pad}")
     opposite = "push" if direction == "pull" else "pull"
-    layout_b = get_layout(g, opposite, row_bytes=row_bytes)
+    layout_b = layout_for(g, opposite, x.shape[-1])
     if weights_banded is not None and (
         len(weights_banded) != layout.K
         or any(
@@ -371,13 +367,12 @@ def _sddmm_banded(g, xl, xr, order, precision):
     gather ``xl`` by source band, the kernel's rows are ``xr`` by dst; push
     layout (CSR base): messages gather ``xr`` by dst band, rows are ``xl``
     by src.  Both compute ``<xl[src e], xr[dst e]>``.  The kernel takes any
-    F; the layout is the one a lane-padded row picks, as for the SpMM."""
+    F; the layout is :func:`layout_for`'s, as for the SpMM."""
     if xl.ndim != 2 or xl.shape != xr.shape:
         raise ValueError("impl='banded' needs xl and xr of one [n_pad, F] "
                          "shape")
     direction = "pull" if order == "csc" else "push"
-    row_bytes = ((xl.shape[-1] + 127) // 128) * 128 * 4
-    layout = get_layout(g, direction, row_bytes=row_bytes)
+    layout = layout_for(g, direction, xl.shape[-1])
     if layout is None:
         raise ValueError(
             "this GraphSlice has no banded layout (it was not built by "

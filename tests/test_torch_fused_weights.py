@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from mini_tpu_torch.graph import GraphSlice, from_edges, rmat
-from mini_tpu_torch.graph.banded import get_layout
+from mini_tpu_torch.graph.banded import layout_for
 from mini_tpu_torch.models import gat as gat_mod
 from mini_tpu_torch.models.gcn import (
     gcn_init, gcn_init_opt, gcn_normalize, gcn_train_step,
@@ -55,7 +55,7 @@ def unfused(x, layout, w_list, precision):
 
 def _layout(g, F):
     """The pull layout the banded SpMM picks for F columns."""
-    return get_layout(g, "pull", row_bytes=((F + 127) // 128) * 128 * 4)
+    return layout_for(g, "pull", F)
 
 
 def _routes_agree(g, F, heads, dtype, seed):
@@ -95,7 +95,8 @@ def _train_step(monkeypatch, g, inputs, dims, mdt, route=None):
 def _gat_step(monkeypatch, g, inputs, mdt, unfused_route=False):
     """One step of the GAT [dims[0], 32, dims[-1]] with 2 heads on its
     banded layer, fused or on the unfused route (its forward's sum and
-    its backward's x-gradient); the launches of kernel 2."""
+    its backward's x-gradient, both through ``ops.spmm._apply_banded``);
+    the launches of kernel 2."""
     x, labels, mask = inputs
     dims = [x.shape[1], 32, int(labels.max()) + 1]
     params = gat_mod.gat_init(torch.Generator().manual_seed(3), dims,
@@ -103,8 +104,7 @@ def _gat_step(monkeypatch, g, inputs, mdt, unfused_route=False):
     before = (k2.launches, k2.weighted_launches)
     with monkeypatch.context() as mp:
         if unfused_route:
-            mp.setattr(gat_mod, "banded_segment_sum", unfused_sum)
-            mp.setattr(gat_mod, "_apply_banded", unfused)
+            mp.setattr(spmm_mod, "_apply_banded", unfused)
         out = gat_mod.gat_train_step(params, gat_mod.gat_init_opt(params),
                                      g, x, (labels, mask), 0.1,
                                      message_dtype=mdt, attn="banded")

@@ -27,8 +27,9 @@ GRAPHS = {1: (80, 500), 3: (300, 2400)}  # bands -> erdos_renyi(n, m)
 
 
 @functools.lru_cache(maxsize=None)
-def setup(bands, seed=4):
-    """(host graph, JAX slice, port slice, x, JAX params as numpy)."""
+def setup(bands, seed=4, heads=2):
+    """(host graph, JAX slice, port slice, x, JAX params as numpy), the
+    params with ``heads`` heads a layer."""
     n, m = GRAPHS[bands]
     kw = dict(seed=seed, undirected=True)
     hg = tg.erdos_renyi(n, m, **kw)
@@ -37,7 +38,7 @@ def setup(bands, seed=4):
     x = np.random.RandomState(seed).rand(gt.n_pad, DIMS[0]).astype(
         np.float32)
     x[hg.n:] = 0
-    params = jgat.gat_init(jax.random.PRNGKey(6), DIMS, heads=2)
+    params = jgat.gat_init(jax.random.PRNGKey(6), DIMS, heads=heads)
     return hg, gj, gt, x, jax.tree_util.tree_map(np.asarray, params)
 
 
@@ -58,16 +59,17 @@ def flat_grads(tree):
     return [p[k] for p in tree for k in KEYS]
 
 
-def jax_run(bands, attn, mdt=None, batch_softmax=False, grads=False):
+def jax_run(bands, attn, mdt=None, batch_softmax=False, grads=False,
+            heads=2):
     """JAX's forward and, with ``grads``, the gradient of sum(out[:n]^2)
     (the loss of tests/test_models.py:123-144), from one trace, cached
     across the tests.  On the CPU JAX's ``auto`` is its fused path."""
-    return _jax_run(bands, attn, mdt, batch_softmax, grads)
+    return _jax_run(bands, attn, mdt, batch_softmax, grads, heads)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_run(bands, attn, mdt, batch_softmax, grads):
-    hg, gj, _, x, params_np = setup(bands)
+def _jax_run(bands, attn, mdt, batch_softmax, grads, heads):
+    hg, gj, _, x, params_np = setup(bands, heads=heads)
     params = jax.tree_util.tree_map(jnp.asarray, params_np)
     with pytest.MonkeyPatch.context() as mp:
         small_bands(mp, bands)
@@ -84,8 +86,9 @@ def _jax_run(bands, attn, mdt, batch_softmax, grads):
     return np.asarray(out), flat_grads(jax.tree_util.tree_map(np.asarray, g))
 
 
-def port_run(monkeypatch, bands, attn, mdt=None, batch_softmax=False):
-    hg, _, gt, x, params_np = setup(bands)
+def port_run(monkeypatch, bands, attn, mdt=None, batch_softmax=False,
+             heads=2):
+    hg, _, gt, x, params_np = setup(bands, heads=heads)
     small_bands(monkeypatch, bands)
     params = tgat.params_from_jax(params_np, device="cpu")
     leaves = [{k: v.requires_grad_() for k, v in p.items()} for p in params]
@@ -115,6 +118,46 @@ def test_forward_matches_jax_and_oracle(monkeypatch, bands, attn,
     # tests/test_models.py:27-28's tolerance against the float64 oracle
     oracle = tgat.gat_forward_cpu(params_np, hg, x)
     np.testing.assert_allclose(got[: hg.n], oracle, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("attn,batch_softmax", [
+    ("fused", False), ("softmax", False), ("softmax", True),
+])
+def test_one_head_matches_jax_and_oracle(monkeypatch, attn, batch_softmax):
+    """One head a layer, the blockwise SpMM at H = 1 (its head padded to
+    128 columns, the fused path's denominator in the ones column of the
+    padding): the forward against JAX's and the float64 oracle at the
+    forward test's tolerances, the gradients against JAX's at the
+    gradient test's."""
+    hg, _, gt, x, params_np = setup(1, heads=1)
+    assert all(p["w"].shape[0] == 1 for p in params_np)
+    want, want_g = jax_run(1, attn, batch_softmax=batch_softmax,
+                           grads=not batch_softmax, heads=1)
+    got, got_g = port_run(monkeypatch, 1, attn, batch_softmax=batch_softmax,
+                          heads=1)
+    assert got.shape == want.shape == (gt.n_pad, DIMS[-1])
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    oracle = tgat.gat_forward_cpu(params_np, hg, x)
+    np.testing.assert_allclose(got[: hg.n], oracle, rtol=1e-3, atol=1e-4)
+    for a, b in zip(want_g or (), got_g):
+        np.testing.assert_allclose(b, a, rtol=5e-3, atol=5e-5)
+    assert sum(float(np.abs(b).sum()) for b in got_g) > 0
+
+
+@pytest.mark.parametrize("bands", [1, 3])
+def test_one_head_banded_backward_matches_fused(monkeypatch, bands):
+    """The banded layer's native backward at one head a layer (the SDDMM
+    gives one head's weight cotangent as ``[mk]``, not ``[mk, 1]``)
+    against autograd through the port's fused path, at the gradient
+    test's tolerance; the forwards within the layer-choice test's.  JAX's
+    banded backward does not trace at one head, so the port's fused path
+    is the reference here."""
+    got, got_g = port_run(monkeypatch, bands, "banded", heads=1)
+    want, want_g = port_run(monkeypatch, bands, "fused", heads=1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert sum(float(np.abs(b).sum()) for b in got_g) > 0
+    for a, b in zip(want_g, got_g):
+        np.testing.assert_allclose(b, a, rtol=5e-3, atol=5e-5)
 
 
 @pytest.mark.parametrize("bands,attn", [

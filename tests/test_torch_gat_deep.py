@@ -93,7 +93,7 @@ def test_the_cases_have_and_lack_a_lane(monkeypatch, graph):
     assert tgat._head_pad(2, 16) > 16
     assert tgat._head_pad(2, 64) == 64
     g = graph[2]
-    assert tbanded.get_layout(g, "pull", row_bytes=2 * 64 * 4).K == 3
+    assert tbanded.layout_for(g, "pull", 2 * 64).K == 3
     assert g.m == 2 * 1200 + 300
 
 
@@ -222,8 +222,7 @@ def _watch_the_layer(monkeypatch):
         finally:
             depth[0] -= 1
         H = len(hws)
-        lay = tbanded.get_layout(g, "pull",
-                                 row_bytes=H * tgat._head_pad(H, d) * 4)
+        lay = tbanded.layout_for(g, "pull", H * tgat._head_pad(H, d))
         seen["weights"].append(list(zip(aux["w_bands"],
                                         lay.dev("cpu")["valid"])))
         return heads, aux
@@ -238,19 +237,15 @@ def test_banded_layer_gathers_the_vertex_scores(monkeypatch, graph, case):
     """At widths with no spare lane, with and without the skip, the banded
     layer takes each slot's source score from the per-vertex scores: no
     ``torch.matmul`` runs inside it (outside it each head's ``h @ W``
-    does), every unnormalized weight of a real slot lies in (0, 1] and a
-    pad slot's is 0, and ``vertex_scored_layers`` rises by one a layer in
-    the forward and not at all in the backward."""
+    does), and every unnormalized weight of a real slot lies in (0, 1] and
+    a pad slot's is 0."""
     c, params, x, _, g = _case(graph, case)
     seen = _watch_the_layer(monkeypatch)
-    before = tgat.vertex_scored_layers
     out, leaves, banded = _port(monkeypatch, g, params, x, c, "banded")
     L = len(c["heads"])
     assert len(banded) == L
-    assert tgat.vertex_scored_layers - before == L
     torch.autograd.grad(out.square().sum(),
                         [v for p in leaves for v in p.values()])
-    assert tgat.vertex_scored_layers - before == L
     assert seen["inside"] == []
     assert len(seen["outside"]) == sum(c["heads"])
     assert len(seen["weights"]) == L
@@ -259,19 +254,6 @@ def test_banded_layer_gathers_the_vertex_scores(monkeypatch, graph, case):
         for w, valid in bands:
             assert bool((w[valid] > 0).all() and (w[valid] <= 1).all())
             assert bool((w[~valid] == 0).all())
-
-
-@pytest.mark.parametrize("attn", ["fused", "auto"])
-def test_vertex_scored_layers_stays_put_off_the_banded_layer(
-        monkeypatch, graph, attn):
-    """The fused path, asked for or taken by ``auto`` on the CPU, gathers
-    no vertex scores into bands and counts no layer."""
-    monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", SMALL_TABLE)
-    c, params, x, _, g = _case(graph, "no_lane")
-    before = tgat.vertex_scored_layers
-    tgat.gat_forward(params, g, _padded(x, g.n_pad), SLOPE, attn=attn,
-                     skip=c["skip"])
-    assert tgat.vertex_scored_layers == before
 
 
 def test_init_takes_heads_a_layer():
@@ -343,19 +325,18 @@ def test_three_steps_on_the_card_match_the_reference(monkeypatch,
                        num_nodes=inputs["n"])
     g = tg.GraphSlice.from_host(hg, device="cuda")
     c = CASES[case]
-    assert tbanded.get_layout(g, "pull", row_bytes=128 * 4).K > 1
+    assert tbanded.layout_for(g, "pull", 128).K > 1
     params = gat_train.init_params(c["dims"], c["heads"], 5, "cuda")
     x = inputs["x"]
     batch = (_padded(inputs["labels"], g.n_pad),
              _padded(inputs["train_mask"], g.n_pad, False))
     p, o, losses = params, tgat.gat_init_opt(params), []
-    before, scored = tgat.fused_layers, tgat.vertex_scored_layers
+    before = tgat.fused_layers
     for _ in range(3):
         p, o, loss = tgat.gat_train_step(p, o, g, _padded(x, g.n_pad), batch,
                                          LR, SLOPE, skip=c["skip"])
         losses.append(float(loss))
     assert tgat.fused_layers == before
-    assert tgat.vertex_scored_layers - scored == 3 * len(c["heads"])
     want = ref.train([{k: v.double() for k, v in q.items()} for q in params],
                      ref.Edges(src, dst, inputs["n"]), x.double(),
                      inputs["labels"], inputs["train_mask"], LR, MOMENTUM,

@@ -3,6 +3,8 @@ against ``mini_tpu``'s (``impl="xla"``) and the float64 oracle
 ``gcn_forward_cpu``, with the JAX package's parameters carried across; and
 the JAX suite's training oracles on the port's own RNG."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 
 import mini_tpu.graph as jg
 import mini_tpu.models.gcn as jgcn
+from mini_tpu.graph import banded as jbanded
 import mini_tpu_torch.graph as tg
 from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.models.gcn import (
@@ -25,6 +28,10 @@ from mini_tpu_torch.models.gcn import (
 )
 
 DIMS = [32, 64, 8]
+SMALL_TABLE = 128 * 128 * 4  # 128-row bands at 512-byte rows
+
+# the module (the package exports its function under the same name)
+spmm_mod = importlib.import_module("mini_tpu_torch.ops.spmm")
 
 
 def graphs():
@@ -61,6 +68,34 @@ def test_gcn_normalize_matches():
         for a, b in zip(getattr(nj, f), getattr(nt, f)):
             np.testing.assert_allclose(b.numpy(), np.asarray(a),
                                        rtol=2.4e-7, atol=0)
+
+
+def test_gcn_normalize_bands_for_the_spmms_layout(setup, monkeypatch):
+    """A ``band_for_f`` off a multiple of 128 (nothing in the repo passes
+    one) is where the packages part: the port bands the weights for
+    ``layout_for``'s layout at that width, the one its SpMM takes, JAX for
+    ``band_for_f * 4`` bytes a row.  At 40 columns and 128-row bands the
+    port's weights come in 3 bands and JAX's in 1; the port's forward
+    re-bands nothing and is bitwise its forward at the default 128."""
+    monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", SMALL_TABLE)
+    monkeypatch.setattr(jbanded, "FAST_TABLE_BYTES", SMALL_TABLE)
+    ht, gt, params_np, x, _, _ = setup
+    gj = graphs()[2]
+    nt, nj = gcn_normalize(gt, band_for_f=40), jgcn.gcn_normalize(
+        gj, band_for_f=40)
+    assert len(nt.banded_pull) == len(nt.banded_push) == 3
+    assert len(nj.banded_pull) == len(nj.banded_push) == 1
+    for f, direction in (("banded_pull", "pull"), ("banded_push", "push")):
+        lay = tbanded.layout_for(gt, direction, 40)
+        assert [int(w.shape[0]) for w in getattr(nt, f)] == [
+            len(i) for i in lay.ids]
+    params = params_from_jax(params_np, device="cpu")
+    before = spmm_mod.rebanded
+    got = gcn_forward(params, gt, nt, torch.from_numpy(x), impl="banded")
+    assert spmm_mod.rebanded == before
+    want = gcn_forward(params, gt, gcn_normalize(gt), torch.from_numpy(x),
+                       impl="banded")
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("impl,bands", [

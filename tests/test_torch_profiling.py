@@ -9,9 +9,8 @@ its counters count), reads and predecessor pass, nested in its query; a
 PageRank's query, rounds and reads; a training step's forward, backward
 and update, in that order; ``ops.spmm.rebanded``, the count of
 banded calls that re-band their weights; a GAT step's ``gat.attn`` and
-``gat.attn.backward`` spans, one a layer, ``models.gat.fused_layers``,
-the count of layers that left the banded layer, and
-``models.gat.vertex_scored_layers``, the count of those that ran it."""
+``gat.attn.backward`` spans, one a layer, and ``models.gat.fused_layers``,
+the count of layers that left the banded layer."""
 
 import json
 import os
@@ -254,16 +253,3 @@ def test_fused_layers_counts_the_layers_that_leave_the_banded_layer(
     before = gat_mod.fused_layers
     step()
     assert gat_mod.fused_layers - before == fused
-
-
-@pytest.mark.parametrize("attn,scored", [("auto", 0), ("fused", 0),
-                                         ("banded", 2)])
-def test_vertex_scored_layers_counts_the_banded_layers(attn, scored):
-    """A step on the banded layer counts each of its two layers once in
-    ``models.gat.vertex_scored_layers`` (their slot scores gathered from
-    the per-vertex scores), its backward none; a step on the fused path
-    counts none."""
-    step = _gat_case(attn)
-    before = gat_mod.vertex_scored_layers
-    step()
-    assert gat_mod.vertex_scored_layers - before == scored
