@@ -22,8 +22,13 @@ Phases; any failure ends with a traceback and a non-zero exit:
    path calls it, within SUM_TOL at F=128 and 32 in float32 and bf16, two
    launches bitwise equal and equal to the plain emulation of its
    schedule, also on a star graph (F=1 unweighted, F=33 bf16, F=128) and,
-   without weights, on the rmat18 pull layout (K=9, F=32); kernel
-   wrappers given inputs that require grad must raise.  Every kernel has
+   without weights, on the rmat18 pull layout (K=9, F=32); its indexed
+   form (each slot's row of x read by the layout's ids, as the models
+   launch it) bitwise its stream form on the band gathers, both timed, at
+   rmat16 K=3 F=128 (float32, bf16) and on a graph of ogbn-arxiv's size
+   at the training cells' shapes (F=256, K=11; F=1024, K=42, ``[mk, 4]``
+   weights; pull and push); kernel wrappers given inputs that require
+   grad must raise.  Every kernel has
    two times: per call over many back-to-back launches (``cuda_ms``: the
    host's enqueue where it is the longer) and on the device alone
    (``graph_ms``: a CUDA graph of captured launches), beside its plain version, its bound (``bound``)
@@ -42,8 +47,8 @@ Phases; any failure ends with a traceback and a non-zero exit:
 5. GCN training at the same width on the RMAT graph (``bench.py``'s
    ``gcn_train_f32``/``gcn_train_bf16`` rows): the first step's loss and
    gradients against the same step on ``impl="xla"``, 4 segment-sum (all
-   weighted), 0 SDDMM and 4 K row-gather launches per step (K bands), the
-   step time;
+   weighted, all reading rows by id), 0 SDDMM and 0 row-gather launches
+   per step, the step time;
    then ER-2048 trained on a teacher's labels until the loss falls below
    0.7 of its first value;
 6. the SpMM weight gradient (the SDDMM kernel), ``sddmm`` in both edge
@@ -429,6 +434,11 @@ def phase_kernels(g, hg_big, device):
             msgs, device)[0])
     del msgs
     stats["banded_segment_sum"] = kernel_stats(err2, *t2)
+    # the indexed form, as the models launch it, against the stream form
+    for dtype in (torch.float32, torch.bfloat16):
+        check_indexed_form(f"rmat{SCALE} pull", layout, dev, F_HID, 1,
+                           dtype, rng, device)
+    indexed_at_cell_shapes(device)
 
     stats["banded_sddmm"] = check_sddmm(layout, dev, lay_b, dev_b, rng,
                                         device)
@@ -714,6 +724,86 @@ def banded_sum_agrees(label, dev, msgs, device, weights=None) -> tuple:
     assert torch.equal(got, again), f"{label}: two launches differ"
     assert torch.equal(got, emulated), f"{label}: not the emulated schedule"
     return err, limit
+
+
+def check_indexed_form(label, layout, dev, F, H, dtype, rng, device):
+    """Kernel 2's indexed form (each slot's row of x read by the layout's
+    ids, as ``ops.spmm._apply_banded`` launches it) against its stream
+    form on the K band gathers of the same x, bit for bit, weighted by
+    ``[mk]`` (H = 1) or ``[mk, H]`` weights in (0, 1]; then timed: the
+    gathers, the stream kernel on their streams, the indexed kernel, and
+    an aggregation each way (the gathers and the stream kernel, against
+    the indexed kernel alone)."""
+    import torch
+
+    from mini_tpu_torch.ops.kernels import gather_rows as kg
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    x = torch.from_numpy(rng.rand(layout.n_pad, F).astype(np.float32)
+                         - 0.5).to(device=device, dtype=dtype)
+    shape = (lambda n: (n,)) if H == 1 else (lambda n: (n, H))
+    w = [torch.from_numpy((1.0 - rng.rand(*shape(len(i)))).astype(
+        np.float32)).to(device) for i in layout.ids]
+    args = (dev["bounds"], dev["offs2d"])
+    kw = dict(row_prefix=dev["row_prefix"], weights=w,
+              edge_chunk=layout.edge_chunk)
+    rows = layout.band_rows
+
+    def gathers():
+        return [kg.gather_rows(x[k * rows: (k + 1) * rows], dev["ids"][k])
+                for k in range(layout.K)]
+
+    def indexed():
+        return k2.banded_segment_sum(*args, x, ids=dev["ids"],
+                                     band_rows=rows, **kw)
+
+    streams = gathers()
+    before = (k2.launches, k2.indexed_launches)
+    got, want = indexed(), k2.banded_segment_sum(*args, streams, **kw)
+    assert (k2.launches - before[0], k2.indexed_launches - before[1]) == (
+        2, 1), label
+    torch.cuda.synchronize(device)
+    assert torch.equal(got, want), f"{label}: the forms' bits differ"
+    t_g = timed(gathers, device)
+    t_s = timed(lambda: k2.banded_segment_sum(*args, streams, **kw), device)
+    del streams
+    t_i = timed(indexed, device)
+    log(f"# kernel 2 indexed vs stream form {label} K={layout.K} F={F} "
+        f"H={H} {str(dtype)[6:]}: bitwise; device ms: gathers "
+        f"{t_g['device_ms']:.4f}, stream kernel {t_s['device_ms']:.4f}, "
+        f"indexed kernel {t_i['device_ms']:.4f}; an aggregation "
+        f"{t_g['device_ms'] + t_s['device_ms']:.4f} -> "
+        f"{t_i['device_ms']:.4f} (per call {t_g['ms'] + t_s['ms']:.4f} -> "
+        f"{t_i['ms']:.4f})")
+    return t_g, t_s, t_i
+
+
+def indexed_at_cell_shapes(device) -> None:
+    """:func:`check_indexed_form` at the training cells' shapes: a directed
+    graph of ogbn-arxiv's size with skewed in-degrees (hubs over many
+    walkers, vertices with no in-edge), float32, its pull and push
+    layouts at the GCN's F = 256 (K = 11, ``[mk]`` weights) and at GAT's
+    F = 1,024 (K = 42, ``[mk, 4]`` weights)."""
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, from_edges
+    from mini_tpu_torch.graph.banded import layout_for
+
+    rng = np.random.RandomState(0)
+    n, m = 169_343, 2_332_486  # ogbn-arxiv's vertices, edges
+    srcs = rng.randint(0, n, m)
+    dsts = (n * rng.rand(m) ** 3).astype(np.int64)
+    g = GraphSlice.from_host(from_edges(srcs, dsts, num_nodes=n),
+                             device=device)
+    for F, H, K in ((256, 1, 11), (1024, 4, 42)):
+        for direction in ("pull", "push"):
+            lay = layout_for(g, direction, F)
+            assert lay.K == K, (F, direction, lay.K)
+            check_indexed_form(f"ogbn-arxiv size {direction}", lay,
+                               lay.dev(device), F, H, torch.float32, rng,
+                               device)
+    del g
+    torch.cuda.empty_cache()
 
 
 def check_banded_sum(label, layout, dev, msgs, device, weights=None):
@@ -1258,11 +1348,13 @@ def phase_gcn(name, hg, g, device):
     x = torch.from_numpy(x_np).to(device)
 
     def forward(mdt):
-        before = (k2.launches, kg.launches)
+        before = (k2.launches, kg.launches, k2.indexed_launches)
         out = gcn_forward(params, g, norm, x, message_dtype=mdt)
-        # per layer: K band gathers and one banded sum
-        counts = (k2.launches - before[0], kg.launches - before[1])
-        assert counts == (2, 2 * K), counts
+        # per layer one banded sum, reading x's rows by the K bands' ids:
+        # no band gather
+        counts = (k2.launches - before[0], kg.launches - before[1],
+                  k2.indexed_launches - before[2])
+        assert counts == (2, 0, 2), (K, counts)
         return out
 
     out32 = forward(None)
@@ -1313,15 +1405,17 @@ def phase_train(g, device):
 
     def step(impl, mdt=None):
         before = (k2.launches, k2.sddmm_launches, kg.launches,
-                  k2.weighted_launches)
+                  k2.weighted_launches, k2.indexed_launches)
         out = gcn_train_step(params, opt, g, norm, x, (labels, mask), 1e-2,
                              impl=impl, message_dtype=mdt)
-        if impl == "banded":  # 2 forward sums, 2 dx sums, no SDDMM; K
-            # band gathers before each sum; every sum weighted
+        if impl == "banded":  # 2 forward sums, 2 dx sums, no SDDMM; every
+            # sum weighted and reading its rows by the K bands' ids: no
+            # band gather
             counts = (k2.launches - before[0], k2.sddmm_launches - before[1],
                       kg.launches - before[2],
-                      k2.weighted_launches - before[3])
-            assert counts == (4, 0, 4 * K, 4), counts
+                      k2.weighted_launches - before[3],
+                      k2.indexed_launches - before[4])
+            assert counts == (4, 0, 0, 4, 4), (K, counts)
         return out
 
     # from zero momentum the new momentum is the gradient itself
@@ -1681,7 +1775,7 @@ def gat_vertex_scores(label, g, device) -> None:
         torch.cuda.empty_cache()
 
 
-def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
+def gat_no_lane_step(g, x, labels, mask, K, device) -> None:
     """:data:`GAT_NO_LANE`'s train step under ``attn="auto"``: every layer
     on the banded layer (the launches a layer of :func:`phase_gat`'s step,
     none sent to the fused path), its loss and gradients against the fused
@@ -1705,7 +1799,7 @@ def gat_no_lane_step(g, x, labels, mask, K, K_b, device) -> None:
     counts = launches_since(before)
     L = len(heads)
     want = dict(segment_reduce=3 * L, banded_segment_sum=2 * L,
-                banded_sddmm=L, segment_sum=0, gather_rows=L * (3 * K + K_b),
+                banded_sddmm=L, segment_sum=0, gather_rows=L * 2 * K,
                 apply_fixed_perm=L)
     assert counts == want, counts
     assert gat.fused_layers == fused, "a no-lane layer left the banded path"
@@ -1738,7 +1832,6 @@ def phase_gat(hg, g, hg_big, device):
 
     F = GAT_HEADS * 64  # two heads of 32, each padded to 64 columns
     K = layout_for(g, "pull", F).K
-    K_b = layout_for(g, "push", F).K
     params = gat_init(torch.Generator().manual_seed(0), GAT_DIMS,
                       heads=GAT_HEADS, device=device)
     x_np = np.random.RandomState(0).rand(g.n_pad, F_IN).astype(np.float32)
@@ -1749,12 +1842,12 @@ def phase_gat(hg, g, hg_big, device):
         before = launches_now()
         out32, dense = dense_calls(lambda: gat_forward(params, g, x))
         counts = launches_since(before)
-    # the banded layer: per layer K band gathers of the rows and K of the
-    # source scores, one banded sum and one segment reduce (the softmax
-    # denominators, all bands and heads), and no permutation (the fused
-    # path permutes its weights into bands)
+    # the banded layer: per layer K band gathers of the source scores, one
+    # banded sum (reading the rows by the bands' ids) and one segment
+    # reduce (the softmax denominators, all bands and heads), and no
+    # permutation (the fused path permutes its weights into bands)
     want = dict(segment_reduce=2, banded_segment_sum=2, banded_sddmm=0,
-                segment_sum=0, gather_rows=2 * 2 * K, apply_fixed_perm=0)
+                segment_sum=0, gather_rows=2 * K, apply_fixed_perm=0)
     assert counts == want, counts
     # each layer's slot scores gathered from its vertex scores (K more
     # row gathers): no cuBLAS call on a band's rows (the product form made
@@ -1790,14 +1883,16 @@ def phase_gat(hg, g, hg_big, device):
     (_, grads, loss), dense_step = dense_calls(lambda: step("auto"))
     counts = launches_since(before)
     assert dense_step == gat_dense_calls(GAT_DIMS, heads, True), dense_step
-    # per layer: forward 2 K gathers (the rows and the source scores) + 1
-    # sum + 1 segment reduce (the denominators); backward K gathers + 1 SDDMM (weight cotangent), 2
-    # segment reduces (ds_dst off the pull bands, ds_src off the push
-    # bands: each one launch for all bands and heads, where a launch per
-    # band and head made H (K + K_b) = 12 a layer), 1 permutation (pull to
-    # push bands), K_b gathers + 1 sum (g_h)
+    # per layer: forward K gathers (the source scores) + 1 sum (the rows
+    # read by id) + 1 segment reduce (the denominators); backward K
+    # gathers + 1 SDDMM (weight cotangent), 2 segment reduces (ds_dst off
+    # the pull bands, ds_src off the push bands: each one launch for all
+    # bands and heads, where a launch per band and head made H (K + K_b)
+    # = 12 a layer), 1 permutation (pull to push bands), 1 sum (g_h, the
+    # rows read by id); 3 K + K_b gathers a layer before kernel 2 read
+    # rows by id
     want = dict(segment_reduce=2 * 3, banded_segment_sum=4,
-                banded_sddmm=2, segment_sum=0, gather_rows=2 * (3 * K + K_b),
+                banded_sddmm=2, segment_sum=0, gather_rows=2 * 2 * K,
                 apply_fixed_perm=2)
     assert counts == want, (
         "a GAT step launches kernel 1 once per layer and direction (all "
@@ -1823,7 +1918,7 @@ def phase_gat(hg, g, hg_big, device):
         f"fused max err/max|fused| {err:.3g} per parameter (bound "
         f"{GRAD_TOL}); bf16 grads max err/largest fused grad {err16:.3g} "
         f"(bound {BF16_TOL})")
-    gat_no_lane_step(g, x, labels, mask, K, K_b, device)
+    gat_no_lane_step(g, x, labels, mask, K, device)
 
     for name, attn, mdt in (("gat_train_f32", "auto", None),
                             ("gat_train_bf16", "auto", torch.bfloat16),
@@ -1910,7 +2005,6 @@ def phase_sage(g, device):
     import torch
 
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi
-    from mini_tpu_torch.graph.banded import layout_for
     from mini_tpu_torch.models.sage import (
         sage_forward, sage_forward_cpu, sage_init, sage_init_opt, sage_loss,
         sage_train_step,
@@ -1953,8 +2047,6 @@ def phase_sage(g, device):
     log(f"# sage rmat{SCALE} banded vs xla: forward allclose (rtol 1e-4), "
         f"grads max err/max|xla| {err:.3g} (bound {GRAD_TOL})")
 
-    K = layout_for(g, "pull", F_HID).K
-    K_b = layout_for(g, "push", F_HID).K
     opt = sage_init_opt(params)
 
     def step(impl):
@@ -1965,10 +2057,11 @@ def phase_sage(g, device):
     step("banded")
     counts = launches_since(before)
     # per layer: 2 permutations (the unit weights into pull and push
-    # bands), K gathers + 1 sum; the backward: dx of layer 2 only (x needs
-    # no gradient), K_b gathers + 1 sum; no SDDMM (constant weights)
+    # bands), 1 sum (the rows read by the K bands' ids); the backward: dx
+    # of layer 2 only (x needs no gradient), 1 sum; no SDDMM (constant
+    # weights), no band gather
     want = dict(segment_reduce=0, banded_segment_sum=3, banded_sddmm=0,
-                segment_sum=0, gather_rows=2 * K + K_b, apply_fixed_perm=4)
+                segment_sum=0, gather_rows=0, apply_fixed_perm=4)
     assert counts == want, counts
     for impl in ("banded", "xla"):
         t = time_fn(lambda: step(impl), warmup=1, repeat=5, device=device)
@@ -2519,9 +2612,10 @@ def phase_arxiv(device):
     0.1 on the banded path, the loss falling and test accuracy above 0.7
     (tests/test_datasets.py's bar); after step 20 the params and momentum
     saved and loaded into a fresh structure, step 21 from the loaded state
-    bitwise step 21 from the live one; one step and a BFS under
-    ``trace()``, whose Chrome trace holds the five scopes and the port's
-    kernels; the host cost of a ``scope`` with no profiler."""
+    bitwise step 21 from the live one; one step, an SDDMM (the band
+    gathers) and a BFS under ``trace()``, whose Chrome trace holds the
+    five scopes and the port's kernels; the host cost of a ``scope`` with
+    no profiler."""
     import json
     import tempfile
 
@@ -2537,6 +2631,7 @@ def phase_arxiv(device):
         gcn_train_step,
     )
     from mini_tpu_torch.ops import engine
+    from mini_tpu_torch.ops.spmm import sddmm
     from mini_tpu_torch.utils import load_pytree, save_pytree, scope, trace
     from mini_tpu_torch.utils.profiling import scope_of
     from mini_tpu_torch.utils.timing import time_fn
@@ -2671,6 +2766,8 @@ def phase_arxiv(device):
     with tempfile.TemporaryDirectory() as d:
         with trace(d):
             step(params, opt)
+            # the band gathers' route since kernel 2 reads rows by id
+            sddmm(gs, x, impl="banded")
             r = bfs(gs, hub)
             torch.cuda.synchronize(device)
         with open(os.path.join(d, "trace.json")) as f:
@@ -2710,8 +2807,9 @@ def phase_arxiv(device):
         engine.scope, engine.scope_of = real_scopes
     t_bfs = time_fn(lambda: bfs(gs, hub), warmup=1, repeat=3, device=device)
     per_round = t_bfs.min_s * 1e6 / r.num_iterations
-    log(f"# arxiv: trace of one step and a BFS (hub {hub}, {r.num_iterations} "
-        f"rounds, labels bitwise bfs_cpu) holds the scopes {list(SCOPES)} "
+    log(f"# arxiv: trace of one step, an SDDMM and a BFS (hub {hub}, "
+        f"{r.num_iterations} rounds, labels bitwise bfs_cpu) holds the "
+        f"scopes {list(SCOPES)} "
         f"and the kernels {list(TRACED_KERNELS)}; with no profiler a scope "
         f"costs {t_scope:.3f} us of host a use, scope_of {t_scope_of:.3f} "
         f"us ({t_loop:.3f} us of each the bare loop); the BFS enters "
@@ -3275,12 +3373,13 @@ KERNELS = {
 
 def counters() -> dict:
     """kernel -> (its wrapper module, the name of its launch counter), and
-    ``banded_segment_sum.weighted``, kernel 2's launches that scaled by
-    weights."""
+    ``banded_segment_sum.weighted`` and ``.indexed``, kernel 2's launches
+    that scaled by weights and that read rows of a table by ids."""
     import importlib
 
     refs = {name: (m, attr) for name, (m, attr, _, _) in KERNELS.items()}
     refs["banded_segment_sum.weighted"] = ("spmm_banded", "weighted_launches")
+    refs["banded_segment_sum.indexed"] = ("spmm_banded", "indexed_launches")
     return {name: (importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}"),
                    attr) for name, (m, attr) in refs.items()}
 

@@ -3,7 +3,11 @@
 // for v = 128 t + r, where next = offs2d[t,k,r+1], or bounds[k,t+1] for
 // r = 127.  K segment-sorted message streams msgs[k] ([mk_pad, F], float32
 // or bfloat16) fold into one float32 output [n_tiles * 128, F].  Pad slots
-// past a band's last segment end are never read.  The weights are
+// past a band's last segment end are never read.  The messages come in
+// one of two forms.  The stream form reads them from K gathered streams.
+// The indexed form reads msgs[k][j] = x[k band_rows + ids[k][j]] from the
+// source table x ([n_src, F]) by the layout's K band-local id streams, so
+// no gathered copy is written or read back.  The weights are
 // optional: without them w[k][j] = 1 and nothing is multiplied.  With
 // them, w[k] is [mk_pad] of the messages' type, or [mk_pad, H] for H heads
 // (GAT), column c of a message taking head c / (F / H)'s weight.  A
@@ -90,10 +94,38 @@
 // shared-memory stages filled by cp.async.bulk / TMA.  The register batch
 // keeps 4 x 512 bytes in flight per warp at F = 128 float32, which
 // already reaches three quarters of the bound; the ring is the next step
-// for bf16 and narrow rows.  Not fused: the band gather x[band][ids].
-// Reading x's rows here in place of the gathered streams changes the bytes
-// the kernel needs (a table that fits in L2 is read once, not once an
-// edge), so its roofline would need another count.
+// for bf16 and narrow rows.
+//
+// The indexed form (the banded SpMM's, ops/spmm.py's _apply_banded).
+// The stream form's caller gathered every band first: a read of x's rows
+// and a write of the [mk, F] streams, which this kernel then read back, so
+// an aggregation moved its edge stream three times where the sum needs it
+// once.  The indexed walker is the stream walker with one more load a
+// slot: the slot's id (4 bytes, read by every lane of the walker at one
+// address), then its row of x.  The id stands in front of the row, so the
+// walk is staged by one batch: a batch's rows are loaded, then the next
+// batch's ids and weights, then the batch's rows are added; an id has a
+// batch's loads and additions to arrive in.  The ids travel as K pointers
+// with x as one pointer and band_rows, so the weighted indexed kernel's
+// parameters (2 x 1 KB of pointers) stay those of the weighted stream
+// kernel.  Slots, chunks, lanes, column blocks, carries, the fix-up and
+// the order of additions are the stream form's, so both forms give the
+// same bits.  Its bytes are at most the stream form's, one F-wide row a
+// slot, and fewer where L2 holds rows of x: at rmat16, F = 128 the 33.5
+// MB table fits in the 50 MB L2 and the walk takes 0.243 ms against the
+// stream form's bound of 0.333 ms; at ogbn-arxiv's size, F = 256, x is
+// 173 MB and a step's sums run at 73.6% of that bound (58% as streams).
+// The batch, swept on the H100 (NVIDIA H100 80GB HBM3, 700 W) at the
+// training cells' shapes on ogbn-arxiv's graph, weighted, float32, ms a
+// launch for batches 1 / 2 / 3 / 4 / 8: F = 256, K = 11: 0.970 / 0.992 /
+// 0.980 / 1.233 / 2.771; F = 1,024, K = 42, [mk, 4] weights: 7.68 / 7.62
+// / 7.50 / 9.47 / 17.28 (4 and 8 in an earlier call, whose batch of 2
+// read within 0.4% of these).  A larger batch takes registers (64 at 3,
+// the weighted kernel's cap at 4 blocks an SM) and costs resident warps;
+// with the cap raised to 5 or 6 blocks a batch of 2 or 3 lost 9-73%.  So
+// 3 in float32.  In bf16 at F = 256, batches 2 / 4 / 8: 0.855 / 0.973 /
+// 1.221; so 2.  The stream form's aggregation at those shapes, the
+// gathers and the stream kernel: 0.99 + 1.25 ms and 3.93 + 7.85 ms.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -260,6 +292,21 @@ __device__ __forceinline__ void next_segment(const Layout& L, Cursor& c,
   } while (c.j == c.e);
 }
 
+// The slot `start` of the virtual order: its row, then its band and slot.
+__device__ __forceinline__ Cursor first_slot(const Layout& L, int start,
+                                             int n_rows) {
+  Cursor c;
+  c.v = last_le(L.prefix, n_rows, start);
+  int o = start - L.prefix[c.v];
+  for (c.k = 0;; ++c.k) {
+    L.segment(c.v, c.k, c.j, c.e);
+    if (o < c.e - c.j) break;
+    o -= c.e - c.j;
+  }
+  c.j += o;
+  return c;
+}
+
 // A finished row's sums: to out when the row lies inside this chunk
 // [start, stop), else to the walker's carry (side 0: the row began before
 // the chunk; side 1: it goes on past it).
@@ -315,16 +362,7 @@ __device__ __forceinline__ void walk(const StreamPtrs& msgs,
   const bool lane_on = c0 < F;
   const int head = kWeighted && lane_on ? c0 / head_cols : 0;
 
-  // the row that holds slot `start`, then its band and slot
-  Cursor c;
-  c.v = last_le(L.prefix, n_rows, static_cast<int>(start));
-  int o = static_cast<int>(start) - L.prefix[c.v];
-  for (c.k = 0;; ++c.k) {
-    L.segment(c.v, c.k, c.j, c.e);
-    if (o < c.e - c.j) break;
-    o -= c.e - c.j;
-  }
-  c.j += o;
+  Cursor c = first_slot(L, static_cast<int>(start), n_rows);
 
   float acc[V];
 #pragma unroll
@@ -397,6 +435,138 @@ banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
                    head_cols);
 }
 
+// Slots an indexed walker has in flight: a batch's rows of x, while the
+// next batch's ids (and weights) load.  Swept on the H100 (header).
+template <typename T>
+constexpr int kIndexedBatch = sizeof(T) == 4 ? 3 : 2;
+
+// A walker of the indexed form (the two kernels below): the walk of
+// `walk`, the same slots in the same order and the same additions, with
+// slot j of band k read from row band_lo(k) + ids.p[k][j] of the table x
+// (band_lo(k) = k band_rows) in place of row j of a gathered stream.  The
+// loop is staged by one batch: the current batch's rows of x are loaded,
+// then the next batch's ids and weights, then the current rows are added,
+// so an id's load is never waited on by the rows it names.
+template <typename T, int V, bool kWeighted>
+__device__ __forceinline__ void walk_indexed(
+    const T* __restrict__ x, int band_rows, const StreamPtrs& ids,
+    const StreamPtrs& wts, const Layout& L, float* __restrict__ out,
+    float* __restrict__ carry, int F, int G, int chunk, int n_walkers,
+    int H, int head_cols) {
+  using Raw = typename Vec<T, V>::raw;
+  const int walker = blockIdx.x * (kSumThreads / G) + threadIdx.x / G;
+  const int c0 = (blockIdx.y * G + threadIdx.x % G) * V;  // first column
+  const int n_rows = L.n_tiles * kRowTile;
+  const int total = L.prefix[n_rows];
+  const long long start = static_cast<long long>(walker) * chunk;
+  if (walker >= n_walkers || start >= total) return;
+  const long long stop = start + chunk;
+  const int end = static_cast<int>(stop < total ? stop : total);
+  const bool lane_on = c0 < F;
+  const int head = kWeighted && lane_on ? c0 / head_cols : 0;
+  Cursor c = first_slot(L, static_cast<int>(start), n_rows);
+
+  // the staged batch: each slot's row of x (its band's first row and its
+  // id), its weight and its output row
+  constexpr int B = kIndexedBatch<T>;
+  int lo[B], id[B], rows[B];
+  T wv[B];
+  int n = min(B, end - static_cast<int>(start));
+#pragma unroll
+  for (int u = 0; u < B; ++u) {
+    if (u < n) {
+      if (c.j == c.e) next_segment(L, c, n_rows);
+      lo[u] = c.k * band_rows;
+      id[u] = __ldg(static_cast<const int*>(ids.p[c.k]) + c.j);
+      if constexpr (kWeighted)
+        if (lane_on)
+          wv[u] = __ldg(static_cast<const T*>(wts.p[c.k]) +
+                        static_cast<size_t>(c.j) * H + head);
+      rows[u] = c.v;
+      ++c.j;
+    }
+  }
+
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  int row = rows[0];
+  for (int base = static_cast<int>(start); base < end; base += B) {
+    const int m = n;
+    Raw val[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u)
+      if (u < m && lane_on)
+        val[u] = __ldg(reinterpret_cast<const Raw*>(
+            x + static_cast<size_t>(lo[u] + id[u]) * F + c0));
+    int now_rows[B];
+    T now_w[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      now_rows[u] = rows[u];
+      if constexpr (kWeighted) now_w[u] = wv[u];
+    }
+    // stage the next batch while these rows are in flight
+    n = min(B, end - (base + B));
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (u < n) {
+        if (c.j == c.e) next_segment(L, c, n_rows);
+        lo[u] = c.k * band_rows;
+        id[u] = __ldg(static_cast<const int*>(ids.p[c.k]) + c.j);
+        if constexpr (kWeighted)
+          if (lane_on)
+            wv[u] = __ldg(static_cast<const T*>(wts.p[c.k]) +
+                          static_cast<size_t>(c.j) * H + head);
+        rows[u] = c.v;
+        ++c.j;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      if (u < m) {
+        if (now_rows[u] != row) {
+          if (lane_on)
+            flush<V>(L, out, carry, row, acc, start, stop, walker, F, c0);
+          row = now_rows[u];
+#pragma unroll
+          for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+        }
+        if (lane_on) {
+          if constexpr (kWeighted) accumulate(acc, val[u], to_f32(now_w[u]));
+          else accumulate(acc, val[u]);
+        }
+      }
+    }
+  }
+  if (lane_on) flush<V>(L, out, carry, row, acc, start, stop, walker, F, c0);
+}
+
+// The indexed form of the two kernels above: the same name, so a trace
+// counts its time as kernel 2's.
+template <typename T, int V>
+__global__ void __launch_bounds__(kSumThreads)
+banded_segment_sum_kernel(const T* __restrict__ x, int band_rows,
+                          const __grid_constant__ StreamPtrs ids,
+                          const Layout L, float* __restrict__ out,
+                          float* __restrict__ carry, int F, int G, int chunk,
+                          int n_walkers) {
+  walk_indexed<T, V, false>(x, band_rows, ids, ids, L, out, carry, F, G,
+                            chunk, n_walkers, 1, F);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSumThreads, sizeof(T) == 4 ? 4 : 2)
+banded_segment_sum_kernel(const T* __restrict__ x, int band_rows,
+                          const __grid_constant__ StreamPtrs ids,
+                          const __grid_constant__ StreamPtrs wts,
+                          const Layout L, float* __restrict__ out,
+                          float* __restrict__ carry, int F, int G, int chunk,
+                          int n_walkers, int H, int head_cols) {
+  walk_indexed<T, V, true>(x, band_rows, ids, wts, L, out, carry, F, G,
+                           chunk, n_walkers, H, head_cols);
+}
+
 // The rows the walkers did not write: a row with no slot gets zeros; a row
 // that crosses chunk edges gets its carries added in chunk order.  A warp
 // per row: `lanes` lanes (a power of two) cover F, V columns each, and the
@@ -464,16 +634,26 @@ banded_fixup_kernel(const int* __restrict__ prefix,
   }
 }
 
-// wts: the streams' weights, or null pointers for none.
+// ptrs: the K message streams, or with a table x the K id streams.  wts:
+// the streams' weights, or null pointers for none.
 template <typename T, int V>
 void launch_sum(const StreamPtrs& ptrs, const StreamPtrs& wts, int H,
-                const Layout& L, float* out, float* carry, int F, int G,
-                int chunk, int n_walkers, int fix_lanes, cudaStream_t s) {
+                const T* x, int band_rows, const Layout& L, float* out,
+                float* carry, int F, int G, int chunk, int n_walkers,
+                int fix_lanes, cudaStream_t s) {
   const int per_block = kSumThreads / G;
   if (n_walkers > 0) {
     const dim3 grid((n_walkers + per_block - 1) / per_block,
                     (F + G * V - 1) / (G * V));
-    if (wts.p[0] != nullptr)
+    const bool weighted = wts.p[0] != nullptr;
+    if (x != nullptr && weighted)
+      banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+          x, band_rows, ptrs, wts, L, out, carry, F, G, chunk, n_walkers, H,
+          F / H);
+    else if (x != nullptr)
+      banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+          x, band_rows, ptrs, L, out, carry, F, G, chunk, n_walkers);
+    else if (weighted)
       banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
           ptrs, wts, L, out, carry, F, G, chunk, n_walkers, H, F / H);
     else
@@ -763,31 +943,36 @@ void launch_sddmm(const SddmmArgs& a, bool vector) {
 
 extern "C" int banded_max_bands() { return kMaxBands; }
 
-// msg_ptrs: host array of K device pointers.  prefix: int32 [n_tiles * 128
-// + 1], the row starts of the virtual order (row_prefix).  carry: float32
-// [n_walkers, 2, F] scratch, n_walkers >= ceil(prefix[-1] / chunk).
-// vector: nonzero when F * element size is a multiple of 16 and every
-// stream is 16-byte aligned.  lanes, fix_lanes: a walker's lanes and the
-// fix-up's lanes per row, powers of two up to 32 (the wrapper's
-// kernel_plan).  wt_ptrs: null for no weights, else a host array of K
-// device pointers to the streams' weights, [mk_pad] (heads 1) or [mk_pad,
-// heads] of the messages' type; heads divides F and, on the vector path,
-// F / heads is a multiple of the lane's 16 bytes of columns.  Two
-// launches: the walkers, then the fix-up.  Returns cudaGetLastError()
-// after them (0 on success), or cudaErrorInvalidValue for bad arguments.
+// msg_ptrs: host array of K device pointers: the message streams, or,
+// with a table, the streams' ids (int32 [mk_pad], band-local).  table:
+// null for the stream form; else the source rows x ([n_src, F] of
+// `dtype`), slot j of band k reading row k * band_rows + msg_ptrs[k][j].
+// prefix: int32 [n_tiles * 128 + 1], the row starts of the virtual order
+// (row_prefix).  carry: float32 [n_walkers, 2, F] scratch, n_walkers >=
+// ceil(prefix[-1] / chunk).  vector: nonzero when F * element size is a
+// multiple of 16 and every stream (or the table) is 16-byte aligned.
+// lanes, fix_lanes: a walker's lanes and the fix-up's lanes per row,
+// powers of two up to 32 (the wrapper's kernel_plan).  wt_ptrs: null for
+// no weights, else a host array of K device pointers to the streams'
+// weights, [mk_pad] (heads 1) or [mk_pad, heads] of the messages' type;
+// heads divides F and, on the vector path, F / heads is a multiple of the
+// lane's 16 bytes of columns.  Two launches: the walkers, then the
+// fix-up.  Returns cudaGetLastError() after them (0 on success), or
+// cudaErrorInvalidValue for bad arguments.
 extern "C" int banded_segment_sum_launch(
     const void* const* msg_ptrs, int K, const void* bounds,
     const void* offs2d, const void* prefix, void* out, void* carry,
     int n_tiles, int F, int dtype, int vector, int lanes, int chunk,
     int n_walkers, int fix_lanes, const void* const* wt_ptrs, int heads,
-    void* stream) {
+    const void* table, int band_rows, void* stream) {
   const auto lanes_ok = [](int x) {
     return x >= 1 && x <= kWarp && (x & (x - 1)) == 0;
   };
   const int V = vector ? (dtype == DT_FLOAT32 ? 4 : 8) : 1;
   if (K < 1 || K > kMaxBands || n_tiles < 0 || F < 1 || chunk < 1 ||
       n_walkers < 0 || !lanes_ok(lanes) || !lanes_ok(fix_lanes) ||
-      heads < 1 || F % heads || (F / heads) % V)
+      heads < 1 || F % heads || (F / heads) % V ||
+      (table != nullptr && band_rows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   StreamPtrs ptrs = {}, wts = {};
@@ -806,16 +991,21 @@ extern "C" int banded_segment_sum_launch(
   float* o = static_cast<float*>(out);
   float* c = static_cast<float*>(carry);
   const int G = lanes, C = chunk, W = n_walkers, FL = fix_lanes, H = heads;
+  const int R = band_rows;
   if (dtype == DT_FLOAT32) {
+    const float* x = static_cast<const float*>(table);
     if (vector)
-      launch_sum<float, 4>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
+      launch_sum<float, 4>(ptrs, wts, H, x, R, L, o, c, F, G, C, W, FL, s);
     else
-      launch_sum<float, 1>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
+      launch_sum<float, 1>(ptrs, wts, H, x, R, L, o, c, F, G, C, W, FL, s);
   } else if (dtype == DT_BFLOAT16) {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(table);
     if (vector)
-      launch_sum<__nv_bfloat16, 8>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
+      launch_sum<__nv_bfloat16, 8>(ptrs, wts, H, x, R, L, o, c, F, G, C, W,
+                                   FL, s);
     else
-      launch_sum<__nv_bfloat16, 1>(ptrs, wts, H, L, o, c, F, G, C, W, FL, s);
+      launch_sum<__nv_bfloat16, 1>(ptrs, wts, H, x, R, L, o, c, F, G, C, W,
+                                   FL, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

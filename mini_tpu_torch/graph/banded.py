@@ -3,9 +3,9 @@
 Vertices are cut into K bands of ``band_rows`` rows.  Edges, in the
 direction's segment order (CSC for pull: sorted by dst; CSR for push:
 sorted by src), are regrouped by the band of the vertex whose features
-they gather, keeping the segment order inside each band.  The SpMM then
-gathers each band's messages from one slice of ``x`` and the
-``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py) folds the K
+they gather, keeping the segment order inside each band.  The
+``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py) then reads each
+band's messages from one slice of ``x`` by the band's ids and folds the K
 segment-sorted message streams into one output through per-band offset
 staircases, with no per-edge destination array.
 

@@ -16,11 +16,11 @@ as the GAT paper's deep PPI model does across its middle layer.
 * ``"banded"`` (``"auto"`` on CUDA): :func:`_gat_layer_banded`, weights
   born in banded order (each slot's source score gathered from the
   per-vertex scores by the band's ids), the messages aggregated by the
-  banded SpMM's own route (``ops/spmm._apply_banded``: the band gathers,
-  one ``banded_segment_sum`` launch), the softmax denominators the
-  per-segment sums of the weights themselves (one launch of
-  :func:`banded_heads_segment_sum`), so a head needs no spare lane in its
-  padding.  While a profiler runs the forward is the span ``gat.attn`` and
+  banded SpMM's own route (``ops/spmm._apply_banded``: one
+  ``banded_segment_sum`` launch that reads the rows by the bands' ids),
+  the softmax denominators the per-segment sums of the weights
+  themselves (one launch of :func:`banded_heads_segment_sum`), so a head
+  needs no spare lane in its padding.  While a profiler runs the forward is the span ``gat.attn`` and
   the backward ``gat.attn.backward``.  :class:`_GatBandedLayer` makes it
   trainable with the JAX package's native banded backward: the weight
   cotangent by the banded SDDMM with heads, ``ds_dst`` and ``ds_src`` by
@@ -121,9 +121,9 @@ def _gat_layer_banded(
     (``gmax`` the global max of the source scores, an exact stabilizer
     because LeakyReLU is monotone, so every weight lies in (0, 1]).  The
     head concat, cast to ``message_dtype``, then runs the banded SpMM's
-    aggregation (``ops/spmm._apply_banded``): the band gathers and one
-    ``banded_segment_sum``, which weighs each head block by its ``w``
-    column as it adds it.  Each head's denominator is the per-segment sum
+    aggregation (``ops/spmm._apply_banded``): one ``banded_segment_sum``,
+    which reads each slot's row of the head concat by the band's ids and
+    weighs each head block by its ``w`` column as it adds it.  Each head's denominator is the per-segment sum
     of its weights as the kernel rounds them (to ``message_dtype``
     first), by one launch of :func:`banded_heads_segment_sum` over the K
     ``[mk, H]`` bands: no column of the messages carries it, so a head's

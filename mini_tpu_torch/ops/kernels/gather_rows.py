@@ -7,8 +7,9 @@ The Hopper form of the scratch probes' TPU row gathers
 ``dyn_gather``), which all compute this one function.  ``idx`` is int32
 ``[M]``; ``table`` is ``[W, F]`` of any dtype (float32 and bfloat16 on the
 SpMM path; the kernel moves bytes), and the result is ``[M, F]`` of the
-table's dtype.  Every band gather of the banded SpMM, SDDMM and GAT layer
-runs it.
+table's dtype.  Every band gather of the banded SDDMM and of the GAT
+layer's slot scores runs it (the banded SpMM's kernel reads its rows by
+id and gathers no band).
 
 The kernel moves 16-byte (or narrower) vectors by threads, with
 streaming stores (see the source).

@@ -11,7 +11,13 @@ per-slot tensors ``[mk_pad]``, or ``[mk_pad, H]`` whose column ``h``
 scales columns ``[h F/H, (h+1) F/H)`` (GAT's heads).  A weighted message
 is ``fl(m * w)``, the product in float32 rounded to the messages' dtype
 with ``w`` first cast to it, the bits of ``ops.spmm._weigh``; the kernel
-forms it in registers and never writes it.
+forms it in registers and never writes it.  The messages come as K
+gathered streams (the stream form), or, with ``ids`` and ``band_rows``,
+as a table: ``msgs`` is then the source rows ``x`` (``[n_src, F]``) and
+``msgs[k][j] = x[k band_rows + ids[k][j]]`` for the K band-local int32 id
+streams ``ids[k]`` (``[mk_pad]``, ``BandedLayout.dev()["ids"]``), which
+the kernel reads in place of a gathered copy (the indexed form).  Both
+forms give the same bits.
 
 ``banded_sddmm``: ``dw[base_k + j] = <y[v], msgs[k][j]>`` for every slot
 ``j`` of band ``k`` in row ``v``'s segment; the flat float32 result has
@@ -61,25 +67,29 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # kernel launches since the last reset (see chip_smoke.py), per wrapper
 launches = 0  # banded_segment_sum
 weighted_launches = 0  # those of them that scaled by weights
+indexed_launches = 0  # those of them that read rows of a table by ids
 sddmm_launches = 0  # banded_sddmm
 # the bound C entries and the kernel's band limit, set at the first launch
 _sum_launch = _sddmm_launch = None
 _max_bands = 0
 
 
-def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
-    """Check shapes and types; apply ``precision``; return the streams."""
+def _check_layout(bounds, offs2d, K, what, precision) -> None:
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
-    msgs = list(msgs)
-    K = len(msgs)
     if K == 0 or bounds.shape[0] != K or offs2d.shape[1] != K:
         raise ValueError(
-            f"{K} streams for bounds {tuple(bounds.shape)} and offs2d "
+            f"{K} {what} for bounds {tuple(bounds.shape)} and offs2d "
             f"{tuple(offs2d.shape)}"
         )
     if offs2d.shape[0] != bounds.shape[1] - 1 or offs2d.shape[2] != ROW_TILE:
         raise ValueError(f"offs2d must be [n_tiles, K, {ROW_TILE}]")
+
+
+def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
+    """Check shapes and types; apply ``precision``; return the streams."""
+    msgs = list(msgs)
+    _check_layout(bounds, offs2d, len(msgs), "streams", precision)
     dtype, F = msgs[0].dtype, msgs[0].shape[-1]
     for m in msgs:
         if m.ndim != 2 or m.shape[1] != F or m.dtype != dtype:
@@ -96,25 +106,80 @@ def _prepare(bounds, offs2d, msgs, precision, edge_chunk) -> list:
     return msgs
 
 
-def _prepare_weights(msgs, weights) -> tuple:
-    """Check the per-slot weights against the prepared streams; return
-    them cast to the messages' dtype, and the head count (1 without
-    weights)."""
+def _prepare_table(bounds, offs2d, x, ids, band_rows, precision,
+                   edge_chunk) -> tuple:
+    """The indexed form's :func:`_prepare`: check the table, the id
+    streams and ``band_rows`` against the layout; apply ``precision`` to
+    the table; return the table and the id streams."""
+    ids = list(ids)
+    K = len(ids)
+    _check_layout(bounds, offs2d, K, "id streams", precision)
+    if x.ndim != 2:
+        raise ValueError(f"the table must be [n_src, F], got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the table must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if band_rows is None or band_rows < 1 or (K - 1) * band_rows >= len(x):
+        raise ValueError(f"band_rows={band_rows} does not cut the table's "
+                         f"{len(x)} rows into {K} bands")
+    for i in ids:
+        if i.ndim != 1 or i.dtype != torch.int32:
+            raise ValueError("ids must be K int32 [mk_pad] tensors")
+        if i.shape[0] % edge_chunk:
+            raise ValueError(
+                f"stream length {i.shape[0]} is not a multiple of "
+                f"edge_chunk={edge_chunk}"
+            )
+    if precision == "fast" and x.dtype == torch.float32:
+        x = x.to(torch.bfloat16)
+    return x, ids
+
+
+def _gathered(x, ids, band_rows) -> list:
+    """The K streams the indexed form reads: row ``k band_rows +
+    ids[k][j]`` of the table as slot ``j`` of band ``k``."""
+    return [x[k * band_rows + i.long()] for k, i in enumerate(ids)]
+
+
+def _streams(bounds, offs2d, msgs, precision, edge_chunk, ids,
+             band_rows) -> tuple:
+    """The prepared message streams of either form (the indexed form's
+    gathered in plain torch, for the plain versions), and whether the
+    kernel reads what it is given by 16-byte vectors (:func:`_vector_ok`
+    of the streams, or of the table)."""
+    if ids is None:
+        msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
+        return msgs, _vector_ok(msgs)
+    x, ids = _prepare_table(bounds, offs2d, msgs, ids, band_rows, precision,
+                            edge_chunk)
+    return _gathered(x, ids, band_rows), _vector_ok([x])
+
+
+def _prepare_weights(F, lengths, dtype, weights) -> tuple:
+    """Check the per-slot weights against F columns and the streams'
+    ``lengths``; return them cast to the messages' ``dtype``, and the head
+    count (1 without weights)."""
     if weights is None:
         return None, 1
     weights = list(weights)
-    F = msgs[0].shape[1]
     ndim = weights[0].ndim if weights else 0
     heads = weights[0].shape[1] if ndim == 2 else 1
-    if (len(weights) != len(msgs) or ndim not in (1, 2) or heads < 1
+    if (len(weights) != len(lengths) or ndim not in (1, 2) or heads < 1
             or F % heads):
-        raise ValueError(f"weights must be {len(msgs)} tensors [mk_pad] or "
-                         f"[mk_pad, H], H dividing F={F}")
-    for w, m in zip(weights, msgs):
-        if w.shape != (m.shape[0], heads)[:ndim] or not w.is_floating_point():
+        raise ValueError(f"weights must be {len(lengths)} tensors [mk_pad] "
+                         f"or [mk_pad, H], H dividing F={F}")
+    for w, n in zip(weights, lengths):
+        if w.shape != (n, heads)[:ndim] or not w.is_floating_point():
             raise ValueError(f"weights {tuple(w.shape)} for a stream of "
-                             f"{m.shape[0]} slots and {heads} heads")
-    return [w.to(msgs[0].dtype) for w in weights], heads
+                             f"{n} slots and {heads} heads")
+    return [w.to(dtype) for w in weights], heads
+
+
+def _stream_weights(msgs, weights) -> tuple:
+    """:func:`_prepare_weights` against prepared streams."""
+    return _prepare_weights(msgs[0].shape[1], [m.shape[0] for m in msgs],
+                            msgs[0].dtype, weights)
 
 
 def _weighted(m, w, heads) -> torch.Tensor:
@@ -177,11 +242,11 @@ def _bind(K: int) -> None:
         P, I, V = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
         # (msg_ptrs, K, bounds, offs2d, prefix, out, carry, n_tiles, F,
         #  dtype, vector, lanes, chunk, n_walkers, fix_lanes, wt_ptrs,
-        #  heads, stream)
+        #  heads, table, band_rows, stream)
         _sum_launch = _build.bind(
             "spmm_banded", "banded_segment_sum_launch",
             [ctypes.POINTER(P), I, V, V, V, V, V, I, I, I, I, I, I, I, I,
-             ctypes.POINTER(P), I, V])
+             ctypes.POINTER(P), I, V, I, V])
         # (msg_ptrs, seg_ptrs, lens, K, bounds, y, out, n_tiles, F, H,
         #  msg_dtype, y_dtype, lanes, head_lanes, stream)
         _sddmm_launch = _build.bind(
@@ -201,12 +266,16 @@ def banded_segment_sum_plain(
     precision: str = "split",
     edge_chunk: int = EDGE_CHUNK,
     weights: Optional[Sequence[torch.Tensor]] = None,
+    ids: Optional[Sequence[torch.Tensor]] = None,
+    band_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain torch version: per band, an ``index_add_`` of the stream's
     (weighted) messages into their segments' rows, accumulated in float64
-    and rounded once, so it is a deterministic reference for the kernel."""
-    msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
-    weights, heads = _prepare_weights(msgs, weights)
+    and rounded once, so it is a deterministic reference for the kernel.
+    With ``ids`` ``msgs`` is the table, its streams gathered here."""
+    msgs, _ = _streams(bounds, offs2d, msgs, precision, edge_chunk, ids,
+                       band_rows)
+    weights, heads = _stream_weights(msgs, weights)
     n_pad = offs2d.shape[0] * ROW_TILE
     out = torch.zeros(n_pad, msgs[0].shape[1], dtype=torch.float64,
                       device=msgs[0].device)
@@ -257,11 +326,15 @@ def banded_segment_sum_scheduled_plain(
     row_prefix: Optional[torch.Tensor] = None,
     chunk: Optional[int] = None,
     weights: Optional[Sequence[torch.Tensor]] = None,
+    ids: Optional[Sequence[torch.Tensor]] = None,
+    band_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """The segment-sum kernel's schedule in plain torch: the same result as
     ``csrc/spmm_banded.cu`` bit for bit, for the CPU tests of the partition
     and for the card's check of the kernel.  With ``weights`` each slot's
-    message is first weighted as the kernel weighs it (module doc).
+    message is first weighted as the kernel weighs it (module doc).  With
+    ``ids`` ``msgs`` is the table (the indexed form), whose rows the
+    schedule reads by id in the same order.
 
     Every real slot gets its place in the virtual order (row by row, band
     0 to K-1 in a row); chunk ``b`` holds places ``[b chunk, (b+1)
@@ -274,10 +347,11 @@ def banded_segment_sum_scheduled_plain(
     runs' sums in order to side 1 of the row's first chunk.  Rows with no
     slot are 0.  ``chunk`` defaults to the kernel's (:func:`kernel_plan`).
     """
-    msgs = _prepare(bounds, offs2d, msgs, precision, edge_chunk)
-    weights, heads = _prepare_weights(msgs, weights)
+    msgs, vector = _streams(bounds, offs2d, msgs, precision, edge_chunk,
+                            ids, band_rows)
+    weights, heads = _stream_weights(msgs, weights)
     _, kernel_chunk, fix_lanes = kernel_plan(
-        msgs[0].shape[1], msgs[0].element_size(), _vector_ok(msgs))
+        msgs[0].shape[1], msgs[0].element_size(), vector)
     chunk = kernel_chunk if chunk is None else chunk
     groups = 32 // fix_lanes
     device = msgs[0].device
@@ -372,20 +446,35 @@ def segment_sum_cuda(
     edge_chunk: int = EDGE_CHUNK,
     row_prefix: Optional[torch.Tensor] = None,
     weights: Optional[Sequence[torch.Tensor]] = None,
+    ids: Optional[Sequence[torch.Tensor]] = None,
+    band_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Launch the segment-sum kernel on CUDA tensors (see module doc):
     the walkers and the fix-up.  ``row_prefix`` is the cached schedule;
     without it this call builds it on the device.  ``weights``: the
-    optional per-slot weights, cast here to the messages' dtype.  ``name``
-    is the calling wrapper's, for errors; the caller counts the launch."""
-    device = msgs[0].device
-    refuse_grad(name, *msgs, *(weights or ()))
-    msgs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
-                                             precision, edge_chunk)]
-    weights, heads = _prepare_weights(msgs, weights)
+    optional per-slot weights, cast here to the messages' dtype.  With
+    ``ids``, ``msgs`` is the table that the indexed form reads by them.
+    ``name`` is the calling wrapper's, for errors; the caller counts the
+    launch."""
+    if ids is None:
+        refuse_grad(name, *msgs, *(weights or ()))
+        srcs = [m.contiguous() for m in _prepare(bounds, offs2d, msgs,
+                                                 precision, edge_chunk)]
+        table, reads = None, srcs
+    else:
+        refuse_grad(name, msgs, *(weights or ()))
+        table, srcs = _prepare_table(bounds, offs2d, msgs, ids, band_rows,
+                                     precision, edge_chunk)
+        table = table.contiguous()
+        srcs = [i.contiguous() for i in srcs]
+        reads = [table]
+    device = reads[0].device
+    F, dtype = reads[0].shape[1], reads[0].dtype
+    lengths = [int(m.shape[0]) for m in srcs]
+    weights, heads = _prepare_weights(F, lengths, dtype, weights)
     if weights is not None:
         weights = [w.contiguous() for w in weights]
-    _check_cuda(bounds, offs2d, [*msgs, *(weights or ())], device)
+    _check_cuda(bounds, offs2d, [*srcs, *reads, *(weights or ())], device)
     bounds = bounds.contiguous()
     offs2d = offs2d.contiguous()
     n_tiles = offs2d.shape[0]
@@ -396,29 +485,30 @@ def segment_sum_cuda(
         raise ValueError(f"row_prefix must be int32 [{n_tiles * ROW_TILE + 1}]"
                          f" on {device}")
     row_prefix = row_prefix.contiguous()
-    K = len(msgs)
+    K = len(srcs)
     _bind(K)
-    F, elem = msgs[0].shape[1], msgs[0].element_size()
-    vector = _vector_ok(msgs)
+    elem = reads[0].element_size()
+    vector = _vector_ok(reads)
     lanes, chunk, fix_lanes = kernel_plan(F, elem, vector)
     if vector and (F // heads) % (16 // elem):
         # a head's columns end inside a lane's 16-byte vector: the scalar
         # form, one weight an element, on the same chunks and fix-up
         # groups, so the same order of additions as without weights
         vector, lanes = False, kernel_plan(F, elem, False)[0]
-    n_walkers = -(-sum(int(m.shape[0]) for m in msgs) // chunk)
+    n_walkers = -(-sum(lengths) // chunk)
     out = torch.empty(n_tiles * ROW_TILE, F, dtype=torch.float32,
                       device=device)
     carry = torch.empty(n_walkers * 2 * F, dtype=torch.float32,
                         device=device)
-    ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in msgs])
+    ptrs = (ctypes.c_void_p * K)(*[m.data_ptr() for m in srcs])
     wt_ptrs = None if weights is None else (ctypes.c_void_p * K)(
         *[w.data_ptr() for w in weights])
     rc = _sum_launch(
         ptrs, K, bounds.data_ptr(), offs2d.data_ptr(), row_prefix.data_ptr(),
-        out.data_ptr(), carry.data_ptr(), n_tiles, F,
-        _DTYPE_CODE[msgs[0].dtype], int(vector), lanes, chunk, n_walkers,
-        fix_lanes, wt_ptrs, heads, _build.stream(device.index),
+        out.data_ptr(), carry.data_ptr(), n_tiles, F, _DTYPE_CODE[dtype],
+        int(vector), lanes, chunk, n_walkers, fix_lanes, wt_ptrs, heads,
+        None if table is None else table.data_ptr(),
+        0 if table is None else band_rows, _build.stream(device.index),
     )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -433,21 +523,29 @@ def banded_segment_sum(
     edge_chunk: int = EDGE_CHUNK,
     row_prefix: Optional[torch.Tensor] = None,
     weights: Optional[Sequence[torch.Tensor]] = None,
+    ids: Optional[Sequence[torch.Tensor]] = None,
+    band_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Sum K segment-sorted message streams, each message scaled by its
     slot's weight where ``weights`` are given, into float32
-    ``[n_tiles*128, F]`` rows (see module doc).  On CUDA tensors this
+    ``[n_tiles*128, F]`` rows (see module doc).  ``msgs``: the K streams;
+    or, where ``ids`` (the layout's K id streams) are given, the table
+    ``x`` whose row ``k band_rows + ids[k][j]`` is slot ``j`` of band
+    ``k`` (the indexed form: no stream is gathered).  On CUDA tensors this
     launches ``csrc/spmm_banded.cu`` with ``row_prefix`` as its schedule
     (``BandedLayout.dev()["row_prefix"]``; built in the call when None);
     on CPU tensors it is the plain version, which needs no schedule."""
-    if not _on_card(msgs, "banded_segment_sum"):
+    if not _on_card([msgs] if ids is not None else msgs,
+                    "banded_segment_sum"):
         return banded_segment_sum_plain(bounds, offs2d, msgs, precision,
-                                        edge_chunk, weights)
+                                        edge_chunk, weights, ids, band_rows)
     out = segment_sum_cuda("banded_segment_sum", bounds, offs2d, msgs,
-                           precision, edge_chunk, row_prefix, weights)
-    global launches, weighted_launches
+                           precision, edge_chunk, row_prefix, weights, ids,
+                           band_rows)
+    global launches, weighted_launches, indexed_launches
     launches += 1
     weighted_launches += weights is not None
+    indexed_launches += ids is not None
     return out
 
 

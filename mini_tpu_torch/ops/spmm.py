@@ -7,13 +7,13 @@ case), the aggregation of GNN message passing and its edge scoring.
 
 SpMM implementations:
 
-* ``banded`` (the default for a CUDA ``x``; ``pallas`` is an alias): K
-  band gathers (the ``gather_rows`` kernel, ops/kernels/gather_rows.py) of
-  the messages (graph/banded.py), folded per destination by the
-  ``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py), which scales
-  each message by its edge weight as it adds it: ``out[v] = sum_k sum_j
-  w[k][j] msgs[k][j]`` over v's slots, and no weighted copy of a stream
-  is written.
+* ``banded`` (the default for a CUDA ``x``; ``pallas`` is an alias): the
+  ``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py) folds the
+  messages of the K bands (graph/banded.py) per destination, reading each
+  slot's row of ``x`` by the layout's band-local ids and scaling it by its
+  edge weight as it adds it: ``out[v] = sum_k sum_j w[k][j]
+  x[band k][ids[k][j]]`` over v's slots.  Neither a gathered nor a
+  weighted copy of a stream is written.
   Differentiable in ``x`` (the backward is the opposite-direction banded
   SpMM) and in the edge weights (the ``banded_sddmm`` kernel: ``dw[e] =
   <go[dst e], x[src e]>``), through one ``torch.autograd.Function``.  On
@@ -21,7 +21,7 @@ SpMM implementations:
   ``heads > 1`` is GAT's blockwise form: x is the head concat ``[n_pad,
   H d]``, the weights ``[m_pad, H]``, and head h's columns are scaled by
   its own weight column (the kernel reads the ``[mk, H]`` weights), all
-  heads in one set of gathers and one kernel launch.
+  heads in one kernel launch.
 * ``pallas_onehot``: one whole-graph gather, then the contiguous
   ``segment_sum`` kernel (ops/kernels/spmm_kernel.py), the JAX package's
   round-1 route, kept for comparison.  Not differentiable on CUDA.
@@ -78,8 +78,8 @@ def spmm(
     gradient is asked for).
     ``precision`` (banded only): ``split``/``highest``/``auto`` accumulate
     float32 messages exactly in float32; ``fast`` casts float32 ``x`` to
-    bfloat16 before the gather.  The banded and ``pallas_onehot`` results
-    are float32.
+    bfloat16 before the kernel reads it.  The banded and ``pallas_onehot``
+    results are float32.
     ``interpret`` stands where ``mini_tpu.ops.spmm.spmm`` has it, so the
     same positional arguments mean the same in both packages; it is
     accepted and has no effect here (a CUDA kernel has no interpret mode:
@@ -172,19 +172,20 @@ def _gather_bands(x, layout: BandedLayout, precision):
 
 
 def _apply_banded(x, layout: BandedLayout, w_list, precision):
-    """``out[v] = sum_k sum_j w[k][j] msgs[k][j]`` over v's slots: K band
-    gathers of the unweighted messages, then the banded kernel, which
-    weighs each message as it adds it.  ``w_list``: K per-band weight
-    tensors in the layout's order (``[mk]``, or ``[mk, H]`` per-head
-    columns, which fixes ``heads``).  The one route to kernel 2: the
-    SpMM's forward and backward and GAT's banded layer all call it."""
-    bands = _gather_bands(x, layout, precision)
+    """``out[v] = sum_k sum_j w[k][j] x[band k][ids[k][j]]`` over v's
+    slots: one launch of the banded kernel in its indexed form, which
+    reads each slot's row of ``x`` by the layout's ids (in bfloat16 under
+    ``fast``) and weighs it as it adds it; no band is gathered.
+    ``w_list``: K per-band weight tensors in the layout's order (``[mk]``,
+    or ``[mk, H]`` per-head columns, which fixes ``heads``).  The one
+    route to kernel 2: the SpMM's forward and backward and GAT's banded
+    layer all call it."""
     dev = layout.dev(x.device)
     with scope("spmm.banded_kernel"):
         return banded_segment_sum(
-            dev["bounds"], dev["offs2d"], bands, precision=precision,
+            dev["bounds"], dev["offs2d"], x, precision=precision,
             edge_chunk=layout.edge_chunk, row_prefix=dev["row_prefix"],
-            weights=w_list,
+            weights=w_list, ids=dev["ids"], band_rows=layout.band_rows,
         )
 
 

@@ -4,6 +4,11 @@ copy of every stream (``_weigh``), then kernel 2 without weights.  The two
 must agree bit for bit, in float32 and bf16, with and without heads, down
 to a GCN and a GAT train step's loss, gradients and new parameters.
 
+Kernel 2 also reads its messages' rows of ``x`` by the layout's ids (the
+indexed form, ``ops.spmm._apply_banded``'s), in place of the band
+gathers' streams: the two forms agree bit for bit at GCN and GAT layouts,
+and the route to kernel 2 gathers no band (the SDDMM's route still does).
+
 The CPU tests reach both routes through the plain versions; the tests
 marked ``cuda`` run the kernel on the card and skip without one:
 
@@ -19,6 +24,7 @@ import pytest
 import torch
 
 from mini_tpu_torch.graph import GraphSlice, from_edges, rmat
+from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.graph.banded import layout_for
 from mini_tpu_torch.models import gat as gat_mod
 from mini_tpu_torch.models.gcn import (
@@ -177,6 +183,111 @@ def test_heads_spmm_matches_unfused_route_on_cpu(monkeypatch, small):
     assert all(torch.equal(a, b) for a, b in zip(fused, ref))
 
 
+def gathered(x, layout, w_list, precision):
+    """Kernel 2 as ``_apply_banded`` called it before it read rows by id:
+    the K band gathers (``_gather_bands``), then kernel 2 on the gathered
+    streams, weighted."""
+    bands = spmm_mod._gather_bands(x, layout, precision)
+    dev = layout.dev(x.device)
+    return k2.banded_segment_sum(
+        dev["bounds"], dev["offs2d"], bands, precision=precision,
+        edge_chunk=layout.edge_chunk, row_prefix=dev["row_prefix"],
+        weights=w_list)
+
+
+# band heights that cut the small graph into several bands at these widths
+SMALL_TABLE = 128 * 1024
+INDEXED_CASES = {  # case -> (F, heads, weights, precision)
+    "gcn128": (128, 1, "gcn", "split"),
+    "gcn256": (256, 1, "gcn", "split"),
+    "gat4x64": (256, 4, "heads", "split"),
+    "unweighted": (128, 1, None, "split"),
+    "fast": (128, 1, "gcn", "fast"),
+    "fast_gat": (256, 4, "heads", "fast"),
+}
+
+
+@pytest.mark.parametrize("case", list(INDEXED_CASES))
+def test_indexed_form_is_the_gathered_form_on_cpu(monkeypatch, small, case):
+    """The table and its ids against the band gathers, bit for bit: at the
+    GCN's layouts (F = 128, 256) with ``gcn_normalize``'s pre-banded
+    weights, at a GAT layout with ``[mk, 4]`` weights, without weights,
+    and under ``fast`` (the table rounded to bfloat16 as the gathers
+    rounded it); through ``_apply_banded`` and both plain versions."""
+    monkeypatch.setattr(tbanded, "FAST_TABLE_BYTES", SMALL_TABLE)
+    F, heads, kind, precision = INDEXED_CASES[case]
+    layout = _layout(small, F)
+    assert layout.K > 1
+    gen = torch.Generator().manual_seed(F + heads)
+    x = torch.rand(layout.n_pad, F, generator=gen) - 0.5
+    if kind == "gcn":
+        w = list(gcn_normalize(small, band_for_f=F).banded_pull)
+    elif kind == "heads":
+        w = layout.permute_to_bands(torch.rand(small.m_pad, heads,
+                                               generator=gen))
+    else:
+        w = None
+    want = gathered(x, layout, w, precision)
+    assert torch.equal(spmm_mod._apply_banded(x, layout, w, precision),
+                       want)
+    dev = layout.dev("cpu")
+    args = (dev["bounds"], dev["offs2d"])
+    streams = spmm_mod._gather_bands(x, layout, precision)
+    got = k2.banded_segment_sum_scheduled_plain(
+        *args, x, precision=precision, row_prefix=dev["row_prefix"],
+        weights=w, ids=dev["ids"], band_rows=layout.band_rows)
+    assert torch.equal(got, k2.banded_segment_sum_scheduled_plain(
+        *args, streams, precision=precision, row_prefix=dev["row_prefix"],
+        weights=w))
+
+
+def test_kernel2_route_gathers_no_band(monkeypatch, small):
+    """With ``gather_rows`` made to raise, a GCN step, the SpMM with heads
+    and its x-gradient all run: ``_apply_banded`` gathers nothing.  The
+    SDDMM's route, and the SpMM's weight gradient through it, still
+    gather their bands.  In a GAT step every ``gather_rows`` call lies
+    outside ``_apply_banded`` (the slot scores and the SDDMM)."""
+    dims = [16, 32, 32, 8]
+    inputs = _inputs(small, dims)
+    real = spmm_mod.gather_rows
+    calls = {"inside": 0, "outside": 0, "in_seam": False}
+
+    def refuse(*a, **k):
+        raise AssertionError("a band gather on kernel 2's route")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(spmm_mod, "gather_rows", refuse)
+        _train_step(mp, small, inputs, dims, None)
+        x = torch.rand(small.n_pad, 128, requires_grad=True)
+        w = torch.rand(small.m_pad, 2)
+        out = spmm_mod.spmm(small, x, weights=w, impl="banded", heads=2)
+        torch.autograd.grad(out.sum(), x)
+        with pytest.raises(AssertionError, match="band gather"):
+            spmm_mod.sddmm(small, x.detach(), impl="banded")
+        w.requires_grad_()
+        out = spmm_mod.spmm(small, x, weights=w, impl="banded", heads=2)
+        with pytest.raises(AssertionError, match="band gather"):
+            torch.autograd.grad(out.sum(), w)
+
+    seam = spmm_mod._apply_banded
+
+    def counting(*a, **k):
+        calls["inside" if calls["in_seam"] else "outside"] += 1
+        return real(*a, **k)
+
+    def in_seam(*a, **k):
+        calls["in_seam"] = True
+        try:
+            return seam(*a, **k)
+        finally:
+            calls["in_seam"] = False
+
+    monkeypatch.setattr(spmm_mod, "gather_rows", counting)
+    monkeypatch.setattr(spmm_mod, "_apply_banded", in_seam)
+    _gat_step(monkeypatch, small, _inputs(small, [16, 8]), None)
+    assert calls["inside"] == 0 and calls["outside"] > 0
+
+
 # -- on the card --------------------------------------------------------------
 
 
@@ -253,3 +364,30 @@ def test_gat_step_matches_unfused_route_on_card(monkeypatch, graphs, mdt):
     ref, counts = _gat_step(monkeypatch, g, inputs, mdt, unfused_route=True)
     assert counts[1] == 0
     _assert_steps_equal(fused, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,heads", [(128, 1), (256, 1), (1024, 4),
+                                     (40, 1)])
+@pytest.mark.parametrize("graph", ["rmat16", "arxiv"])
+def test_indexed_form_is_the_gathered_form_on_card(graphs, graph, F, heads,
+                                                   dtype):
+    """Kernel 2 reading rows of x by the layout's ids against kernel 2 on
+    the band gathers, bit for bit, weighted as the models weigh: one
+    launch each, one of them indexed."""
+    g = graphs[graph]
+    layout = _layout(g, F)
+    gen = torch.Generator().manual_seed(F)
+    x = (torch.rand(layout.n_pad, F, generator=gen) - 0.5).to(
+        device=g.device, dtype=dtype)
+    w = layout.permute_to_bands(torch.rand(
+        g.m_pad, *((heads,) if heads > 1 else ()), generator=gen).to(
+            g.device))
+    before = (k2.launches, k2.indexed_launches)
+    got = spmm_mod._apply_banded(x, layout, w, "split")
+    assert (k2.launches - before[0], k2.indexed_launches - before[1]) == (
+        1, 1)
+    assert torch.equal(got, gathered(x, layout, w, "split"))
+    torch.cuda.synchronize()
+

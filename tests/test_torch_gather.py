@@ -274,6 +274,12 @@ def wrapper_calls():
              w(offsets[::128].reshape(1, -1)),
              w(offsets[:-1].reshape(1, 1, 128)), [w(msgs)], edge_chunk=128,
              row_prefix=w(offsets))),
+        ("banded_segment_sum_indexed", k2, "indexed_launches",
+         lambda w: k2.banded_segment_sum(
+             w(offsets[::128].reshape(1, -1)),
+             w(offsets[:-1].reshape(1, 1, 128)), w(msgs), edge_chunk=128,
+             row_prefix=w(offsets), ids=[w(torch.arange(
+                 256, dtype=torch.int32))], band_rows=256)),
         ("banded_sddmm", k2, "sddmm_launches",
          lambda w: k2.banded_sddmm(
              w(offsets[::128].reshape(1, -1)),
@@ -284,7 +290,9 @@ def wrapper_calls():
 
 @pytest.mark.parametrize("name", ["gather_rows", "permute", "permute_rows",
                                   "segment_reduce", "segment_sum",
-                                  "banded_segment_sum", "banded_sddmm"])
+                                  "banded_segment_sum",
+                                  "banded_segment_sum_indexed",
+                                  "banded_sddmm"])
 def test_cpu_tensors_never_load_a_library(monkeypatch, name):
     """On CPU tensors every wrapper runs its plain version: nothing is
     built, loaded or bound, and no launch is counted."""
@@ -304,7 +312,9 @@ def test_cpu_tensors_never_load_a_library(monkeypatch, name):
 
 @pytest.mark.parametrize("name", ["gather_rows", "permute", "permute_rows",
                                   "segment_reduce", "segment_sum",
-                                  "banded_segment_sum", "banded_sddmm"])
+                                  "banded_segment_sum",
+                                  "banded_segment_sum_indexed",
+                                  "banded_sddmm"])
 def test_cuda_call_without_nvcc_raises(monkeypatch, tmp_path, name):
     """A CUDA tensor launches the kernel or raises: with no nvcc the first
     launch fails to build its library and the error reaches the caller;

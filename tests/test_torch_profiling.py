@@ -1,7 +1,7 @@
 """``mini_tpu_torch.utils.profiling``: ``trace`` writes a Chrome trace that
 holds ``mini_tpu``'s five scope names at their counterparts (the banded
-SpMM's band gathers and kernel, the engine's src and dst expansions and
-its dst reduce); ``scope`` is one shared no-op context while no profiler
+SpMM's kernel, the band gathers, which the banded SDDMM runs, the
+engine's src and dst expansions and its dst reduce); ``scope`` is one shared no-op context while no profiler
 runs; ``annotate`` is its decorator form; ``wall_timer`` times a block.
 
 The program's spans: a BFS's query, rounds by kind (as many of each as
@@ -73,6 +73,7 @@ def test_trace_holds_the_five_scopes(tmp_path, monkeypatch):
                          .astype(np.float32))
     with trace(str(tmp_path / "t")) as d:
         spmm(g, x, impl="banded")
+        spmm_mod.sddmm(g, x, impl="banded")  # the band gathers' route
         bfs(g, 0)
     assert d == str(tmp_path / "t")
     names = trace_names(d)

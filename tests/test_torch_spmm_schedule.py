@@ -155,22 +155,40 @@ def _weigh_like_the_kernel(m, w, heads):
 
 
 def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes,
-                          weights=None, heads=1):
+                          weights=None, heads=1, ids=None, band_rows=None):
     """``banded_segment_sum_kernel`` and ``banded_fixup_kernel`` of
     csrc/spmm_banded.cu, transcribed statement by statement (one walker at
     a time, all columns at once), in numpy float32, each message first
-    scaled by its weight where ``weights`` are given.  Unwritten outputs
-    and carries are NaN, so a row written by nobody, or a carry read
-    before it was written, shows."""
+    scaled by its weight where ``weights`` are given.  With ``ids`` (the
+    indexed walker) ``msgs`` is the table, and the walker reads slot ``j``
+    of band ``k`` as its row ``k band_rows + ids[k][j]``, weighted there.
+    Unwritten outputs and carries are NaN, so a row written by nobody, or
+    a carry read before it was written, shows."""
     bounds, offs2d = bounds.numpy(), offs2d.numpy()
     prefix = prefix.numpy().astype(np.int64)
-    msgs = ([m.float().numpy() for m in msgs] if weights is None else
-            [_weigh_like_the_kernel(m, w, heads)
-             for m, w in zip(msgs, weights)])
-    K, n_tiles, F = len(msgs), offs2d.shape[0], msgs[0].shape[1]
+    if ids is None:
+        msgs = ([m.float().numpy() for m in msgs] if weights is None else
+                [_weigh_like_the_kernel(m, w, heads)
+                 for m, w in zip(msgs, weights)])
+        lengths = [m.shape[0] for m in msgs]
+
+        def message(k, j):
+            return msgs[k][j]
+    else:
+        table, lengths = msgs, [len(i) for i in ids]
+        ids = [i.numpy() for i in ids]
+
+        def message(k, j):  # the slot's id, then its row of the table
+            row = table[k * band_rows + int(ids[k][j])][None]
+            if weights is None:
+                return row[0].float().numpy()
+            return _weigh_like_the_kernel(row, weights[k][j][None],
+                                          heads)[0]
+    K, n_tiles = len(lengths), offs2d.shape[0]
+    F = msgs[0].shape[1] if ids is None else table.shape[1]
     n_rows = n_tiles * 128
     total = int(prefix[n_rows])
-    n_walkers = -(-sum(m.shape[0] for m in msgs) // chunk)
+    n_walkers = -(-sum(lengths) // chunk)
     out = np.full((n_rows, F), np.nan, np.float32)
     carry = np.full((n_walkers, 2, F), np.nan, np.float32)
 
@@ -222,7 +240,7 @@ def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes,
             if v != row:
                 flush(row, acc, start, stop, walker)
                 row, acc = v, np.zeros(F, np.float32)
-            acc = acc + msgs[k][j]
+            acc = acc + message(k, j)
             j += 1
         flush(row, acc, start, stop, walker)
 
@@ -366,6 +384,100 @@ def test_weighted_kernel_walk_matches_scheduled_bitwise(layouts, name, F,
     got = _walk_like_the_kernel(*args, msgs, prefix, chunk, fix_lanes,
                                 weights=w, heads=heads)
     assert torch.equal(got, want)
+
+
+def _table(lay, F, dtype, seed=5):
+    """A source table ``[n_pad, F]`` for the indexed form."""
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.rand(lay.n_pad, F).astype(np.float32)
+                            - 0.5).to(dtype)
+
+
+def _ids(lay):
+    return [torch.from_numpy(i) for i in lay.ids]
+
+
+def _gather_then(lay, x):
+    """The stream form's streams: the K band gathers ``x[band k][ids[k]]``,
+    as ``ops.spmm._gather_bands`` makes them."""
+    return [x[k * lay.band_rows: (k + 1) * lay.band_rows][i.long()]
+            for k, i in enumerate(_ids(lay))]
+
+
+@pytest.mark.parametrize("precision", ["split", "fast"])
+@pytest.mark.parametrize("heads", [None, 1, 4])
+@pytest.mark.parametrize("F", [40, 128])
+@pytest.mark.parametrize("name", ["star", "rmat_K3", "rmat_K9",
+                                  "empty_band"])
+def test_indexed_plain_is_the_gathered_sum(layouts, name, F, heads,
+                                           precision):
+    """The table and its ids give, bit for bit, the sum of the band
+    gathers: in the plain version and in the kernel's schedule, without
+    weights and with ``[mk]`` or ``[mk, H]`` ones, and under ``fast``
+    (the table rounded to bfloat16, as the gathers were).  The star's hub
+    crosses many chunks; band 1 of ``empty_band`` has no slot."""
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    x = _table(lay, F, torch.float32)
+    w = None if heads is None else _weights(lay, heads)
+    streams = _gather_then(lay, x)
+    for fn in (k2.banded_segment_sum_plain,
+               k2.banded_segment_sum_scheduled_plain):
+        got = fn(*args, x, precision=precision, weights=w, ids=_ids(lay),
+                 band_rows=lay.band_rows)
+        assert torch.equal(got, fn(*args, streams, precision=precision,
+                                   weights=w))
+
+
+@pytest.mark.parametrize("name,F,heads,dtype,chunk", [
+    ("rmat_K3", 40, None, torch.float32, 61),
+    ("rmat_K9", 16, 1, torch.bfloat16, 512),
+    ("star", 12, 3, torch.float32, 64),
+    ("star", 40, 4, torch.float32, 100),
+    ("empty_band", 24, 3, torch.bfloat16, 40),
+    ("regular", 5, None, torch.bfloat16, 8),
+])
+def test_indexed_kernel_walk_matches_scheduled_bitwise(layouts, name, F,
+                                                       heads, dtype, chunk):
+    """The indexed walker, transcribed with its id load in front of every
+    row, gives the bits of the stream form's scheduled emulation on the
+    gathered streams, and of the indexed schedule."""
+    lay = layouts[name]
+    args = _kernel_args(lay)
+    x = _table(lay, F, dtype, seed=6)
+    w = None if heads is None else _weights(lay, heads, seed=7)
+    prefix = row_prefix(*args)
+    want = k2.banded_segment_sum_scheduled_plain(
+        *args, _gather_then(lay, x), row_prefix=prefix, chunk=chunk,
+        weights=w)
+    assert torch.equal(want, k2.banded_segment_sum_scheduled_plain(
+        *args, x, row_prefix=prefix, chunk=chunk, weights=w, ids=_ids(lay),
+        band_rows=lay.band_rows))
+    fix_lanes = k2.kernel_plan(F, x.element_size(), k2._vector_ok([x]))[2]
+    got = _walk_like_the_kernel(*args, x, prefix, chunk, fix_lanes,
+                                weights=w, heads=heads or 1, ids=_ids(lay),
+                                band_rows=lay.band_rows)
+    assert torch.equal(got, want)
+
+
+def test_indexed_inputs_checked(layouts):
+    lay = layouts["rmat_K3"]
+    args = _kernel_args(lay)
+    x, ids = _table(lay, 16, torch.float32), _ids(lay)
+    bad = [
+        (x, ids[:2], lay.band_rows, "2 id streams for bounds"),
+        (x, [i.long() for i in ids], lay.band_rows, "int32"),
+        (x, [i[:-1] for i in ids], lay.band_rows, "edge_chunk"),
+        (x, ids, None, "band_rows"),
+        (x, ids, lay.n_pad, "band_rows"),
+        (x[:, 0], ids, lay.band_rows, r"\[n_src, F\]"),
+    ]
+    for table, i, rows, match in bad:
+        with pytest.raises(ValueError, match=match):
+            k2.banded_segment_sum_plain(*args, table, ids=i, band_rows=rows)
+    with pytest.raises(TypeError, match="table"):
+        k2.banded_segment_sum_plain(*args, x.double(), ids=ids,
+                                    band_rows=lay.band_rows)
 
 
 def test_weights_checked():
@@ -616,11 +728,13 @@ def test_sddmm_launch_arguments(monkeypatch, layouts, F, H, dtype, ydt):
 
 def fake_sum_launch(msg_ptrs, K, bounds_p, offs2d_p, prefix_p, out_p,
                     carry_p, n_tiles, F, dtype, vector, lanes, chunk,
-                    n_walkers, fix_lanes, wt_ptrs, heads, stream):
+                    n_walkers, fix_lanes, wt_ptrs, heads, table_p, band_rows,
+                    stream):
     """``csrc/spmm_banded.cu``'s banded_segment_sum_launch on the host
     memory its pointers name: the entry's checks of the heads against the
     walker's form, then the walker and fix-up transcription on the real
-    slots and their weights.  Records its arguments in ``calls``."""
+    slots and their weights; with a table, on the rows of it that the id
+    streams (``msg_ptrs``) name.  Records its arguments in ``calls``."""
     import ctypes
 
     def mem(ptr, n, ct):
@@ -636,7 +750,9 @@ def fake_sum_launch(msg_ptrs, K, bounds_p, offs2d_p, prefix_p, out_p,
     fake_sum_launch.calls.append(dict(vector=vector, lanes=lanes,
                                       chunk=chunk, fix_lanes=fix_lanes,
                                       heads=heads,
-                                      weighted=wt_ptrs is not None))
+                                      weighted=wt_ptrs is not None,
+                                      indexed=table_p is not None,
+                                      band_rows=band_rows))
     V = (4 if dtype == 0 else 8) if vector else 1
     if heads < 1 or F % heads or (F // heads) % V:
         return 1
@@ -648,11 +764,21 @@ def fake_sum_launch(msg_ptrs, K, bounds_p, offs2d_p, prefix_p, out_p,
     prefix = torch.from_numpy(mem(prefix_p, n_tiles * 128 + 1,
                                   ctypes.c_int32).copy())
     real = [int(b) for b in bounds[:, -1]]
-    msgs = [stream_of(msg_ptrs[k], real[k], F) for k in range(K)]
     weights = None if wt_ptrs is None else [
         stream_of(wt_ptrs[k], real[k], heads) for k in range(K)]
-    got = _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk,
-                                fix_lanes, weights, heads)
+    if table_p is None:
+        msgs = [stream_of(msg_ptrs[k], real[k], F) for k in range(K)]
+        got = _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk,
+                                    fix_lanes, weights, heads)
+    else:
+        ids = [torch.from_numpy(mem(msg_ptrs[k], real[k], ctypes.c_int32)
+                                .copy()) for k in range(K)]
+        n_src = 1 + max(k * band_rows + int(i.max()) for k, i in
+                        enumerate(ids) if len(i))
+        got = _walk_like_the_kernel(bounds, offs2d,
+                                    stream_of(table_p, n_src, F), prefix,
+                                    chunk, fix_lanes, weights, heads, ids,
+                                    band_rows)
     out = mem(out_p, n_tiles * 128 * F, ctypes.c_float)
     out[:] = got.reshape(-1).numpy()
     return 0
@@ -696,4 +822,48 @@ def test_weighted_launch_arguments(monkeypatch, layouts, F, heads, dtype):
     split = heads is not None and (F // heads) % (16 // msgs[0].element_size())
     assert call["vector"] == int(rows and not split)
     assert call["heads"] == (heads or 1)
+    assert call["weighted"] == (w is not None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F,heads", [(40, None), (40, 1), (128, 4),
+                                     (40, 4), (33, 3)])
+def test_indexed_launch_arguments(monkeypatch, layouts, F, heads, dtype):
+    """The launch path of the indexed form: the table, its band height and
+    the K id streams reach the C entry (emulated on CPU memory) in place
+    of streams, with the stream form's plan for the same rows; the result
+    is the stream form's scheduled emulation on the gathered streams, bit
+    for bit; ``launches`` and ``indexed_launches`` move (and
+    ``weighted_launches`` with weights)."""
+    from mini_tpu_torch.ops.kernels import _build
+    from test_torch_gather import on_card
+
+    monkeypatch.setattr(k2, "_sum_launch", fake_sum_launch)
+    monkeypatch.setattr(k2, "_sddmm_launch", object())
+    monkeypatch.setattr(k2, "_max_bands", 128)
+    monkeypatch.setattr(_build, "stream", lambda device_index: 0)
+    monkeypatch.setattr(fake_sum_launch, "calls", [], raising=False)
+    lay = layouts["star"]
+    args = _kernel_args(lay)
+    prefix = row_prefix(*args)
+    x = _table(lay, F, dtype)
+    w = None if heads is None else _weights(lay, heads)
+    before = (k2.launches, k2.weighted_launches, k2.indexed_launches)
+    got = k2.banded_segment_sum(
+        *[on_card(a) for a in args], on_card(x), row_prefix=on_card(prefix),
+        weights=None if w is None else [on_card(v) for v in w],
+        ids=[on_card(i) for i in _ids(lay)], band_rows=lay.band_rows)
+    assert (k2.launches, k2.weighted_launches, k2.indexed_launches) == (
+        before[0] + 1, before[1] + (w is not None), before[2] + 1)
+    streams = _gather_then(lay, x)
+    assert torch.equal(got, k2.banded_segment_sum_scheduled_plain(
+        *args, streams, row_prefix=prefix, weights=w))
+    call, = fake_sum_launch.calls
+    rows = k2._vector_ok([x])
+    assert rows == k2._vector_ok(streams)
+    lanes, chunk, fix_lanes = k2.kernel_plan(F, x.element_size(), rows)
+    assert (call["chunk"], call["fix_lanes"]) == (chunk, fix_lanes)
+    split = heads is not None and (F // heads) % (16 // x.element_size())
+    assert call["vector"] == int(rows and not split)
+    assert (call["indexed"], call["band_rows"]) == (True, lay.band_rows)
     assert call["weighted"] == (w is not None)
