@@ -6,6 +6,8 @@
     python3 chip_smoke.py --kernels    # phases 1 and 2 alone
     python3 chip_smoke.py --parallel   # phases 1 and 21 alone
     python3 chip_smoke.py --tp-profile # the GCN steps over the meshes
+    python3 chip_smoke.py --wide [DIR] # kernel 2's band limits alone, and
+                                       # its JSON line at ogbn-products' size
 
 Phases; any failure ends with a traceback and a non-zero exit:
 
@@ -27,8 +29,10 @@ Phases; any failure ends with a traceback and a non-zero exit:
    launch it) bitwise its stream form on the band gathers, both timed, at
    rmat16 K=3 F=128 (float32, bf16) and on a graph of ogbn-arxiv's size
    at the training cells' shapes (F=256, K=11; F=1024, K=42, ``[mk, 4]``
-   weights; pull and push); kernel wrappers given inputs that require
-   grad must raise.  Every kernel has
+   weights; pull and push), and past 128 bands (the RMAT graph's layouts
+   at bands of 128 rows, K=513, F=128, float32 with and without weights
+   and bf16: bitwise its emulation, each launch counted wide, timed);
+   kernel wrappers given inputs that require grad must raise.  Every kernel has
    two times: per call over many back-to-back launches (``cuda_ms``: the
    host's enqueue where it is the longer) and on the device alone
    (``graph_ms``: a CUDA graph of captured launches), beside its plain version, its bound (``bound``)
@@ -63,8 +67,11 @@ Phases; any failure ends with a traceback and a non-zero exit:
    (``torch.profiler``) and the peak device memory of a step (also at
    RMAT scale 18); ER-2048 trained until its loss falls;
 8. GraphSAGE [128, 128, 32]: ER-2048 against ``sage_forward_cpu``, the
-   RMAT graph's banded forward and gradients against ``impl="xla"``, the
-   train step time;
+   RMAT graph's banded forward and gradients against ``impl="xla"``, a
+   step with ``sage_normalize``'s pre-banded weights bitwise the re-banded
+   one, the gradients with those weights at bands of 128 rows (K=513,
+   every kernel-2 launch wide) against ``impl="xla"``, the train step
+   time;
 9. ``bfs_batch`` from the 8 highest-degree RMAT sources: each row bitwise
    ``bfs``'s, its four round counters too; time per source and amortised
    MTEPS, with and without preds;
@@ -130,8 +137,9 @@ Phases; any failure ends with a traceback and a non-zero exit:
     blocks (not counted); ``dryrun_multichip(device_count())``, both
     parts;
 22. the script's time, one JSON line of the kernels (launch counts of
-   phases 3-21, each path counted from 0; phase 2's errors, both times,
-   bounds and library calls),
+   phases 3-21, each path counted from 0, and kernel 2's wide launches
+   among them; phase 2's errors, both times, bounds and library calls,
+   and kernel 2's time past 128 bands),
    then the last line ``{"ok": true, "device": {"platform": "gpu",
    ...}}``.
 
@@ -439,6 +447,7 @@ def phase_kernels(g, hg_big, device):
         check_indexed_form(f"rmat{SCALE} pull", layout, dev, F_HID, 1,
                            dtype, rng, device)
     indexed_at_cell_shapes(device)
+    stats["banded_segment_sum"].update(wide_bands(g, rng, device))
 
     stats["banded_sddmm"] = check_sddmm(layout, dev, lay_b, dev_b, rng,
                                         device)
@@ -778,6 +787,86 @@ def check_indexed_form(label, layout, dev, F, H, dtype, rng, device):
     return t_g, t_s, t_i
 
 
+def wide_bands(g, rng, device) -> dict:
+    """Kernel 2's indexed form past 128 bands, as ogbn-products' layout at
+    256 columns takes it (K = 150): the RMAT graph's pull and push layouts
+    at bands of 128 rows (K = 513, built outside the layout cache), F =
+    F_HID, float32 weighted and unweighted and bf16 weighted: bitwise its
+    scheduled emulation, two launches bitwise, each launch counted in
+    ``wide_launches``; the weighted float32 launch timed against the bytes
+    ``banded_segment_sum_roofline`` counts.  Returns the pull layout's K,
+    time and bound for the kernels line."""
+    import torch
+
+    from mini_tpu_torch.graph.banded import ROW_TILE, build_banded_layout
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    def host(name):
+        return getattr(g, name).cpu().numpy()
+
+    mask = host("edge_mask")
+    m = int(mask.sum())
+    res = {}
+    for direction, offsets, ends, weights in (
+            ("pull", "col_offsets", "csc_srcs", "csc_weights"),
+            ("push", "row_offsets", "csr_dsts", "csr_weights")):
+        lay = build_banded_layout(host(offsets), host(ends), host(weights),
+                                  mask, ROW_TILE, direction)
+        assert lay.K > 128, (direction, lay.K)
+        dev = lay.dev(device)
+        for dtype, weighted in ((torch.float32, True),
+                                (torch.float32, False),
+                                (torch.bfloat16, True)):
+            x = torch.from_numpy(rng.rand(lay.n_pad, F_HID).astype(
+                np.float32) - 0.5).to(device=device, dtype=dtype)
+            w = [torch.from_numpy((1.0 - rng.rand(len(i))).astype(
+                np.float32)).to(device=device, dtype=dtype)
+                for i in lay.ids] if weighted else None
+            kw = dict(row_prefix=dev["row_prefix"], weights=w,
+                      edge_chunk=lay.edge_chunk, ids=dev["ids"],
+                      band_rows=lay.band_rows)
+            args = (dev["bounds"], dev["offs2d"], x)
+
+            def launch():
+                return k2.banded_segment_sum(*args, **kw)
+
+            wide = k2.wide_launches
+            got, again = launch(), launch()
+            assert k2.wide_launches - wide == 2, (direction, dtype)
+            want = k2.banded_segment_sum_scheduled_plain(*args, **kw)
+            torch.cuda.synchronize(device)
+            assert torch.equal(got, want), (direction, dtype, "emulation")
+            assert torch.equal(got, again), (direction, dtype, "launches")
+            label = (f"K={lay.K} F={F_HID} {direction} {str(dtype)[6:]} "
+                     f"{'weighted' if weighted else 'unweighted'}")
+            if direction == "pull" and dtype == torch.float32 and weighted:
+                t = timed(launch, device)
+                bnd = bound(4 * m * F_HID + 4 * m + 4 * g.n * F_HID)
+                res = dict(wide_K=lay.K, wide_ms=t["ms"],
+                           wide_device_ms=t["device_ms"],
+                           wide_bound_ms=bnd["bound_ms"])
+                label += (f"; {t['device_ms']:.4f} ms device, "
+                          f"{pct(t['device_ms'], bnd)}")
+            log(f"# kernel 2 past 128 bands rmat{SCALE} {label}: bitwise "
+                f"its emulation, two launches bitwise, both counted wide")
+        del lay, dev
+    return res
+
+
+def arxiv_size_graph(device) -> tuple:
+    """A directed graph of ogbn-arxiv's size with skewed in-degrees (hubs
+    over many walkers, vertices with no in-edge) on ``device``, and the
+    generator that drew it, to draw the rows and weights on from."""
+    from mini_tpu_torch.graph import GraphSlice, from_edges
+
+    rng = np.random.RandomState(0)
+    n, m = 169_343, 2_332_486  # ogbn-arxiv's vertices, edges
+    srcs = rng.randint(0, n, m)
+    dsts = (n * rng.rand(m) ** 3).astype(np.int64)
+    return GraphSlice.from_host(from_edges(srcs, dsts, num_nodes=n),
+                                device=device), rng
+
+
 def indexed_at_cell_shapes(device) -> None:
     """:func:`check_indexed_form` at the training cells' shapes: a directed
     graph of ogbn-arxiv's size with skewed in-degrees (hubs over many
@@ -786,15 +875,9 @@ def indexed_at_cell_shapes(device) -> None:
     F = 1,024 (K = 42, ``[mk, 4]`` weights)."""
     import torch
 
-    from mini_tpu_torch.graph import GraphSlice, from_edges
     from mini_tpu_torch.graph.banded import layout_for
 
-    rng = np.random.RandomState(0)
-    n, m = 169_343, 2_332_486  # ogbn-arxiv's vertices, edges
-    srcs = rng.randint(0, n, m)
-    dsts = (n * rng.rand(m) ** 3).astype(np.int64)
-    g = GraphSlice.from_host(from_edges(srcs, dsts, num_nodes=n),
-                             device=device)
+    g, rng = arxiv_size_graph(device)
     for F, H, K in ((256, 1, 11), (1024, 4, 42)):
         for direction in ("pull", "push"):
             lay = layout_for(g, direction, F)
@@ -804,6 +887,225 @@ def indexed_at_cell_shapes(device) -> None:
                                device)
     del g
     torch.cuda.empty_cache()
+
+
+def parent_sum_launch(parent_dir: str):
+    """Kernel 2's C entry built from another tree's
+    ``mini_tpu_torch/csrc/spmm_banded.cu`` (the same signature), bound with
+    this tree's argument types: what the tree at ``parent_dir`` launches."""
+    import ctypes
+
+    from mini_tpu_torch.ops.kernels import _build
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    k2._bind(1)
+    src = os.path.join(parent_dir, "mini_tpu_torch", "csrc", "spmm_banded.cu")
+    path, _ = _build.compile_library(src, "spmm_banded_parent",
+                                     _build.find_nvcc(), _build.NVCC_FLAGS,
+                                     _build.BUILD_DIR)
+    entry = ctypes.CDLL(path).banded_segment_sum_launch
+    entry.argtypes = k2._sum_launch.argtypes
+    entry.restype = ctypes.c_int
+    return entry
+
+
+@contextlib.contextmanager
+def launching(entry):
+    """Kernel 2's wrapper launching through ``entry`` inside the block."""
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    saved, k2._sum_launch = k2._sum_launch, entry
+    try:
+        yield
+    finally:
+        k2._sum_launch = saved
+
+
+def narrow_bands_unchanged(device, parent_dir=None) -> None:
+    """A launch of at most 128 bands keeps its bits: at ogbn-arxiv's shape
+    (the graph of :func:`indexed_at_cell_shapes`; F = 256, K = 11 with
+    ``[mk]`` weights and without, F = 1,024, K = 42 with ``[mk, 4]``),
+    pull and push, kernel 2's indexed form is bitwise its scheduled
+    emulation (F = 256) and, given ``parent_dir``, bitwise the kernel
+    built from that tree's source on the same inputs; no launch counts as
+    wide."""
+    import torch
+
+    from mini_tpu_torch.graph.banded import layout_for
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    parent = None if parent_dir is None else parent_sum_launch(parent_dir)
+    g, rng = arxiv_size_graph(device)
+    for F, H, K, weighted in ((256, 1, 11, True), (256, 1, 11, False),
+                              (1024, 4, 42, True)):
+        for direction in ("pull", "push"):
+            lay = layout_for(g, direction, F)
+            assert lay.K == K, (F, direction, lay.K)
+            dev = lay.dev(device)
+            x = torch.from_numpy(rng.rand(lay.n_pad, F).astype(np.float32)
+                                 - 0.5).to(device)
+            shape = (lambda c: (c,)) if H == 1 else (lambda c: (c, H))
+            w = [torch.from_numpy((1.0 - rng.rand(*shape(len(i)))).astype(
+                np.float32)).to(device) for i in lay.ids] if weighted else None
+            kw = dict(row_prefix=dev["row_prefix"], weights=w,
+                      edge_chunk=lay.edge_chunk, ids=dev["ids"],
+                      band_rows=lay.band_rows)
+            args = (dev["bounds"], dev["offs2d"], x)
+            wide = k2.wide_launches
+            got = k2.banded_segment_sum(*args, **kw)
+            assert k2.wide_launches == wide
+            said = []
+            if F == 256:
+                want = k2.banded_segment_sum_scheduled_plain(*args, **kw)
+                assert torch.equal(got, want), (F, direction, "emulation")
+                said.append("its emulation")
+            if parent is not None:
+                with launching(parent):
+                    old = k2.banded_segment_sum(*args, **kw)
+                torch.cuda.synchronize(device)
+                assert torch.equal(got, old), (F, direction, "parent")
+                said.append("the parent's kernel")
+            log(f"# kernel 2 narrow K={K} F={F} H={H} {direction} "
+                f"{'weighted' if weighted else 'unweighted'}: bitwise "
+                f"{' and '.join(said)}")
+    del g
+    torch.cuda.empty_cache()
+
+
+PRODUCTS = (2_449_029, 61_859_140)  # ogbn-products' vertices, edges
+
+
+def wide_bands_at_products_shape(device) -> dict:
+    """Kernel 2 past 128 bands at ogbn-products' size: 2,449,029 vertices
+    and 61,859,140 undirected edges made directed both ways (123,718,280;
+    sources uniform, destinations skewed to low ids, so hubs span many
+    walkers), the mean's weights of ``sage_normalize``, float32.  At F =
+    256 (K = 150, the wide tables) and F = 100 (K = 75), pull and push:
+    the indexed launch within SUM_TOL of a float64 sum band by band (the
+    plain version would gather the whole 127 GB stream at F = 256), two
+    launches bitwise equal, the wide launches counted; then one launch
+    timed against the bytes ``sage_segment_sum_roofline`` counts for it.
+    Returns each launch's numbers and the SAGE step's, for the JSON line
+    of ``--wide``."""
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, from_edges
+    from mini_tpu_torch.graph.banded import layout_for
+    from mini_tpu_torch.models.sage import sage_normalize
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    rng = np.random.RandomState(0)
+    n, m = PRODUCTS
+    t0 = time.perf_counter()
+    srcs = rng.randint(0, n, m)
+    dsts = (n * rng.rand(m) ** 3).astype(np.int64)
+    hg = from_edges(srcs, dsts, num_nodes=n, make_undirected=True)
+    del srcs, dsts
+    g = GraphSlice.from_host(hg, device=device)
+    del hg
+    t1 = time.perf_counter()
+    norm = sage_normalize(g, (100, 256))
+    torch.cuda.synchronize(device)
+    log(f"# products shape: n={g.n} m={g.m} n_pad={g.n_pad}; graph "
+        f"{t1 - t0:.1f} s, sage_normalize (4 layouts) "
+        f"{time.perf_counter() - t1:.1f} s")
+    found = dict(launches=[])
+    for F in (256, 100):
+        for direction in ("pull", "push"):
+            lay = layout_for(g, direction, F)
+            K = lay.K
+            assert (K > 128) == (F == 256), (F, direction, K)
+            dev = lay.dev(device)
+            w = norm.banded[lay.band_rows][direction == "push"]
+            x = torch.rand(lay.n_pad, F, device=device) - 0.5
+
+            def launch():
+                return k2.banded_segment_sum(
+                    dev["bounds"], dev["offs2d"], x,
+                    row_prefix=dev["row_prefix"], weights=w,
+                    edge_chunk=lay.edge_chunk, ids=dev["ids"],
+                    band_rows=lay.band_rows)
+
+            wide = k2.wide_launches
+            got, again = launch(), launch()
+            assert k2.wide_launches - wide == (2 if K > 128 else 0)
+            want = torch.zeros(lay.n_pad, F, dtype=torch.float64,
+                               device=device)
+            for k in range(K):  # a hub's band holds millions of slots
+                seg = k2._segment_ids(dev["bounds"], dev["offs2d"], k)
+                for lo in range(0, seg.numel(), 1 << 22):
+                    hi = min(lo + (1 << 22), seg.numel())
+                    rows = x[k * lay.band_rows
+                             + dev["ids"][k][lo:hi].long()]
+                    want.index_add_(0, seg[lo:hi],
+                                    (rows * w[k][lo:hi, None]).double())
+                    del rows
+            torch.cuda.synchronize(device)
+            err = float((got - want).abs().max())
+            limit = SUM_TOL * float(want.abs().max())
+            assert err <= limit, (F, direction, err, limit)
+            assert torch.equal(got, again), (F, direction, "two launches")
+            del want, again, got
+            ms = cuda_ms(launch, device, windows=3, min_calls=5)
+            nbytes = 4 * g.m * F + 4 * g.m + 4 * g.n * F
+            bnd = bound(nbytes)
+            log(f"# kernel 2 products shape K={K} F={F} {direction} "
+                f"weighted (the mean): max err {err:.3g} (limit "
+                f"{limit:.3g}), two launches bitwise, "
+                f"{'2 wide launches' if K > 128 else 'no wide launch'}; "
+                f"{ms:.3f} ms a launch, {pct(ms, bnd)} ({nbytes / 1e9:.1f} "
+                f"GB, {bnd['bound_ms']:.3f} ms)")
+            found["launches"].append(dict(
+                K=K, F=F, direction=direction, wide=K > 128, max_abs_err=err,
+                limit=limit, ms=ms, bound_ms=bnd["bound_ms"]))
+    found["sage_step"] = sage_steps_at_products_shape(g, norm, device)
+    del g, norm
+    torch.cuda.empty_cache()
+    return found
+
+
+def sage_steps_at_products_shape(g, norm, device, steps: int = 3) -> dict:
+    """OGB's GraphSAGE (widths 100, 256, 256, 47) on the graph of
+    :func:`wide_bands_at_products_shape` with ``sage_normalize``'s
+    weights: a step re-bands no weight (``ops.spmm.rebanded``) and makes
+    4 wide launches of kernel 2 of its 5 (the two forward means and the
+    two backward ones at 256 columns; the features' mean takes 75 bands),
+    its loss finite; the step timed and its peak memory read (returned
+    with the counts of a step)."""
+    import torch
+
+    from mini_tpu_torch.models.sage import (
+        sage_init, sage_init_opt, sage_train_step,
+    )
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    spmm_mod = sys.modules["mini_tpu_torch.ops.spmm"]
+    dims = [100, 256, 256, 47]
+    params = sage_init(torch.Generator().manual_seed(0), dims, device=device)
+    opt = sage_init_opt(params)
+    x = torch.rand(g.n_pad, dims[0], device=device) - 0.5
+    labels = torch.randint(0, dims[-1], (g.n_pad,), device=device)
+    mask = torch.arange(g.n_pad, device=device) < 196_615
+    sage_train_step(params, opt, g, x, (labels, mask), 1e-2, norm=norm)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    before = (spmm_mod.rebanded, k2.wide_launches, k2.launches)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        params, opt, loss = sage_train_step(params, opt, g, x,
+                                            (labels, mask), 1e-2, norm=norm)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = (spmm_mod.rebanded - before[0], k2.wide_launches - before[1],
+              k2.launches - before[2])
+    assert counts == (0, 4 * steps, 5 * steps), counts
+    assert bool(torch.isfinite(loss))
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"# sage step at products shape: {ms:.1f} ms a step, peak "
+        f"{peak:.2f} GiB (the graph and four layouts included); a step: 0 "
+        f"re-banded weights, 5 launches of kernel 2, 4 of them wide")
+    return dict(ms=ms, peak_gib=peak, rebanded=0, launches=5,
+                wide_launches=4)
 
 
 def check_banded_sum(label, layout, dev, msgs, device, weights=None):
@@ -2007,7 +2309,7 @@ def phase_sage(g, device):
     from mini_tpu_torch.graph import GraphSlice, erdos_renyi
     from mini_tpu_torch.models.sage import (
         sage_forward, sage_forward_cpu, sage_init, sage_init_opt, sage_loss,
-        sage_train_step,
+        sage_normalize, sage_train_step,
     )
     from mini_tpu_torch.utils.timing import time_fn
 
@@ -2056,18 +2358,73 @@ def phase_sage(g, device):
     before = launches_now()
     step("banded")
     counts = launches_since(before)
-    # per layer: 2 permutations (the unit weights into pull and push
+    # per layer: 2 permutations (the mean's weights into pull and push
     # bands), 1 sum (the rows read by the K bands' ids); the backward: dx
     # of layer 2 only (x needs no gradient), 1 sum; no SDDMM (constant
     # weights), no band gather
     want = dict(segment_reduce=0, banded_segment_sum=3, banded_sddmm=0,
                 segment_sum=0, gather_rows=0, apply_fixed_perm=4)
     assert counts == want, counts
+    # with the weights pre-banded once (sage_normalize): no permutation
+    norm = sage_normalize(g, dims[:-1])
+    before = launches_now()
+    out_n = sage_train_step(params, opt, g, x, (labels, mask), 1e-2,
+                            norm=norm)
+    assert launches_since(before) == {**want, "apply_fixed_perm": 0}
+    out_r = step("banded")
+    for a, b in zip(out_n[0], out_r[0]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k  # the same bands, the same bits
+    sage_past_128_bands(params, g, x, labels, mask, res["xla"][1], device)
     for impl in ("banded", "xla"):
         t = time_fn(lambda: step(impl), warmup=1, repeat=5, device=device)
         log(f"# sage_train rmat{SCALE} {impl} f32: step "
             f"{t.min_s * 1e3:.3f} ms (min of 5)")
     log(f"# phase 8: sage train step launches {json.dumps(counts)}")
+
+
+def sage_past_128_bands(params, g, x, labels, mask, ref, device) -> None:
+    """The SAGE loss's gradients with ``sage_normalize``'s weights on
+    layouts of more than 128 bands, as ogbn-products' 256 columns take
+    them (K = 150): the band height cut to 128 rows (K = 513 on the RMAT
+    graph), every kernel-2 launch of the forward and backward wide, no
+    re-band, the gradients within GRAD_TOL of ``impl="xla"``'s (``ref``).
+    The cut layouts leave the layout cache afterwards."""
+    import torch
+
+    import mini_tpu_torch.graph.banded as banded
+    from mini_tpu_torch.models.sage import sage_loss, sage_normalize
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    spmm_mod = sys.modules["mini_tpu_torch.ops.spmm"]
+    saved = banded.FAST_TABLE_BYTES
+    banded.FAST_TABLE_BYTES = banded.ROW_TILE * 128 * 4  # 128-row bands
+    try:
+        norm = sage_normalize(g, [F_IN, F_HID])
+        K = banded.layout_for(g, "pull", F_HID).K
+        assert K > 128, K
+        leaves = [{k: v.clone().requires_grad_() for k, v in p.items()}
+                  for p in params]
+        before = (k2.launches, k2.wide_launches, spmm_mod.rebanded)
+        loss = sage_loss(leaves, g, x, labels, mask, norm=norm)
+        grads = torch.autograd.grad(loss, [v for p in leaves
+                                           for v in p.values()])
+        counts = (k2.launches - before[0], k2.wide_launches - before[1],
+                  spmm_mod.rebanded - before[2])
+        # two layers forward, layer 2's input gradient backward
+        assert counts == (3, 3, 0), counts
+    finally:
+        banded.FAST_TABLE_BYTES = saved
+        rows = banded.ROW_TILE
+        for key in [k for k in banded._LAYOUT_CACHE if k[2] == rows]:
+            del banded._LAYOUT_CACHE[key]
+        for key in [k for k in banded._COMPOSITE_CACHE if rows in k[1:5]]:
+            del banded._COMPOSITE_CACHE[key]
+    err = grads_close([dict(zip(p, grads[2 * i: 2 * i + 2]))
+                       for i, p in enumerate(leaves)], ref, GRAD_TOL)
+    log(f"# sage rmat{SCALE} past 128 bands (K={K}): 3 launches of kernel "
+        f"2, all wide, 0 re-banded weights; grads max err/max|xla| "
+        f"{err:.3g} (bound {GRAD_TOL})")
 
 
 SOURCES = 8  # bench.py:335's Graph500-style batch: the top-degree sources
@@ -3373,13 +3730,15 @@ KERNELS = {
 
 def counters() -> dict:
     """kernel -> (its wrapper module, the name of its launch counter), and
-    ``banded_segment_sum.weighted`` and ``.indexed``, kernel 2's launches
-    that scaled by weights and that read rows of a table by ids."""
+    ``banded_segment_sum.weighted``, ``.indexed`` and ``.wide``, kernel 2's
+    launches that scaled by weights, that read rows of a table by ids and
+    whose layout had more than 128 bands."""
     import importlib
 
     refs = {name: (m, attr) for name, (m, attr, _, _) in KERNELS.items()}
     refs["banded_segment_sum.weighted"] = ("spmm_banded", "weighted_launches")
     refs["banded_segment_sum.indexed"] = ("spmm_banded", "indexed_launches")
+    refs["banded_segment_sum.wide"] = ("spmm_banded", "wide_launches")
     return {name: (importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}"),
                    attr) for name, (m, attr) in refs.items()}
 
@@ -3435,6 +3794,11 @@ def main(argv) -> None:
         return
     if argv == ["--parallel"]:  # phase 21 alone, no result
         drive("parallel", phase_parallel, hg, device)
+        return
+    if argv[:1] == ["--wide"]:  # kernel 2's band limits alone
+        narrow_bands_unchanged(device, argv[1] if len(argv) > 1 else None)
+        print(json.dumps({"kernel2_products_shape":
+                          wide_bands_at_products_shape(device)}), flush=True)
         return
     if argv == ["--tp-profile"]:  # the GCN steps' profiles, no result
         from mini_tpu_torch.parallel.launch import run_ranks
@@ -3494,6 +3858,9 @@ def main(argv) -> None:
     launches = {name: sum(p[name] for p in paths) for name in KERNELS}
     for name, count in launches.items():
         assert count > 0, f"{name} was not launched on the main path"
+    wide = sum(p["banded_segment_sum.wide"] for p in paths)
+    assert wide > 0, "kernel 2 took no layout past 128 bands on the main path"
+    stats["banded_segment_sum"]["wide_launches"] = wide
 
     log(f"# chip_smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f} s, the build included")

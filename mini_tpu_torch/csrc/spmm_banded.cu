@@ -105,10 +105,10 @@
 // address), then its row of x.  The id stands in front of the row, so the
 // walk is staged by one batch: a batch's rows are loaded, then the next
 // batch's ids and weights, then the batch's rows are added; an id has a
-// batch's loads and additions to arrive in.  The ids travel as K pointers
-// with x as one pointer and band_rows, so the weighted indexed kernel's
-// parameters (2 x 1 KB of pointers) stay those of the weighted stream
-// kernel.  Slots, chunks, lanes, column blocks, carries, the fix-up and
+// batch's loads and additions to arrive in.  The ids (and weights) travel
+// as K pointers in tables of 1,024 (IdPtrs, 8 KB each), with x as one
+// pointer and band_rows: a layout's K grows as n_pad over the band height,
+// and ogbn-products at 256 float32 columns has 150 bands.  Slots, chunks, lanes, column blocks, carries, the fix-up and
 // the order of additions are the stream form's, so both forms give the
 // same bits.  Its bytes are at most the stream form's, one F-wide row a
 // slot, and fewer where L2 holds rows of x: at rmat16, F = 128 the 33.5
@@ -131,10 +131,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kRowTile = 128;
-constexpr int kMaxBands = 128;
+constexpr int kMaxBands = 128;     // the stream form's and the SDDMM's
+constexpr int kMaxIdBands = 1024;  // the indexed form's
 constexpr int kWarp = 32;
 constexpr int kSumThreads = 256;   // threads per block of the segment sum
 constexpr int kFixBatch = 8;       // carries a fix-up lane has in flight
@@ -151,6 +154,19 @@ enum { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
 // The K stream pointers travel by value in the kernel's parameters.
 struct StreamPtrs {
   const void* p[kMaxBands];
+};
+
+// The indexed form's id (and weight) pointers: 8 KB a table, so the
+// weighted kernel's two tables pass the classic 4 KB of parameters (the
+// 32 KB that CUDA 12.1 allows on Volta and later).  Measured at
+// ogbn-products' size (2.45M rows, 123.7M slots, K = 150, weighted;
+// NVIDIA H100 80GB HBM3, 700 W): 140.3 ms a pull launch at F = 256, 27.6%
+// of the bytes bound, and 25.1 ms over rows 4 floats wide.  What K = 11
+// hid is the walk: a walker steps through every (row, band) pair, empty
+// or not, with two dependent offs2d loads each, and at F = 256 float32
+// the second column block walks every slot again.
+struct IdPtrs {
+  const void* p[kMaxIdBands];
 };
 
 // Flat slot index of each band's first slot; base[K] is the total.
@@ -449,8 +465,8 @@ constexpr int kIndexedBatch = sizeof(T) == 4 ? 3 : 2;
 // so an id's load is never waited on by the rows it names.
 template <typename T, int V, bool kWeighted>
 __device__ __forceinline__ void walk_indexed(
-    const T* __restrict__ x, int band_rows, const StreamPtrs& ids,
-    const StreamPtrs& wts, const Layout& L, float* __restrict__ out,
+    const T* __restrict__ x, int band_rows, const IdPtrs& ids,
+    const IdPtrs& wts, const Layout& L, float* __restrict__ out,
     float* __restrict__ carry, int F, int G, int chunk, int n_walkers,
     int H, int head_cols) {
   using Raw = typename Vec<T, V>::raw;
@@ -547,7 +563,7 @@ __device__ __forceinline__ void walk_indexed(
 template <typename T, int V>
 __global__ void __launch_bounds__(kSumThreads)
 banded_segment_sum_kernel(const T* __restrict__ x, int band_rows,
-                          const __grid_constant__ StreamPtrs ids,
+                          const __grid_constant__ IdPtrs ids,
                           const Layout L, float* __restrict__ out,
                           float* __restrict__ carry, int F, int G, int chunk,
                           int n_walkers) {
@@ -558,8 +574,8 @@ banded_segment_sum_kernel(const T* __restrict__ x, int band_rows,
 template <typename T, int V>
 __global__ void __launch_bounds__(kSumThreads, sizeof(T) == 4 ? 4 : 2)
 banded_segment_sum_kernel(const T* __restrict__ x, int band_rows,
-                          const __grid_constant__ StreamPtrs ids,
-                          const __grid_constant__ StreamPtrs wts,
+                          const __grid_constant__ IdPtrs ids,
+                          const __grid_constant__ IdPtrs wts,
                           const Layout L, float* __restrict__ out,
                           float* __restrict__ carry, int F, int G, int chunk,
                           int n_walkers, int H, int head_cols) {
@@ -634,10 +650,11 @@ banded_fixup_kernel(const int* __restrict__ prefix,
   }
 }
 
-// ptrs: the K message streams, or with a table x the K id streams.  wts:
-// the streams' weights, or null pointers for none.
-template <typename T, int V>
-void launch_sum(const StreamPtrs& ptrs, const StreamPtrs& wts, int H,
+// ptrs: the K message streams (P = StreamPtrs), or with a table x the K
+// id streams (P = IdPtrs).  wts: the streams' weights, or null pointers
+// for none.
+template <typename T, int V, typename P>
+void launch_sum(const P& ptrs, const P& wts, int H,
                 const T* x, int band_rows, const Layout& L, float* out,
                 float* carry, int F, int G, int chunk, int n_walkers,
                 int fix_lanes, cudaStream_t s) {
@@ -646,14 +663,15 @@ void launch_sum(const StreamPtrs& ptrs, const StreamPtrs& wts, int H,
     const dim3 grid((n_walkers + per_block - 1) / per_block,
                     (F + G * V - 1) / (G * V));
     const bool weighted = wts.p[0] != nullptr;
-    if (x != nullptr && weighted)
-      banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
-          x, band_rows, ptrs, wts, L, out, carry, F, G, chunk, n_walkers, H,
-          F / H);
-    else if (x != nullptr)
-      banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
-          x, band_rows, ptrs, L, out, carry, F, G, chunk, n_walkers);
-    else if (weighted)
+    if constexpr (std::is_same_v<P, IdPtrs>) {
+      if (weighted)
+        banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+            x, band_rows, ptrs, wts, L, out, carry, F, G, chunk, n_walkers,
+            H, F / H);
+      else
+        banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
+            x, band_rows, ptrs, L, out, carry, F, G, chunk, n_walkers);
+    } else if (weighted)
       banded_segment_sum_kernel<T, V><<<grid, kSumThreads, 0, s>>>(
           ptrs, wts, L, out, carry, F, G, chunk, n_walkers, H, F / H);
     else
@@ -939,14 +957,59 @@ void launch_sddmm(const SddmmArgs& a, bool vector) {
   }
 }
 
+// The segment sum's launch with the K pointers (and weights) in tables of
+// type P (the form's), dispatched by dtype; the entry below has checked
+// them.
+template <typename P>
+int sum_with(const void* const* msg_ptrs, int K, const Layout& L,
+             float* out, float* carry, int F, int dtype, int vector, int G,
+             int chunk, int n_walkers, int fix_lanes,
+             const void* const* wt_ptrs, int H, const void* table,
+             int band_rows, cudaStream_t s) {
+  P ptrs = {}, wts = {};
+  for (int k = 0; k < K; ++k) {
+    ptrs.p[k] = msg_ptrs[k];
+    if (wt_ptrs != nullptr) {
+      if (wt_ptrs[k] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+      wts.p[k] = wt_ptrs[k];
+    }
+  }
+  const int C = chunk, W = n_walkers, FL = fix_lanes, R = band_rows;
+  if (dtype == DT_FLOAT32) {
+    const float* x = static_cast<const float*>(table);
+    if (vector)
+      launch_sum<float, 4>(ptrs, wts, H, x, R, L, out, carry, F, G, C, W, FL,
+                           s);
+    else
+      launch_sum<float, 1>(ptrs, wts, H, x, R, L, out, carry, F, G, C, W, FL,
+                           s);
+  } else if (dtype == DT_BFLOAT16) {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(table);
+    if (vector)
+      launch_sum<__nv_bfloat16, 8>(ptrs, wts, H, x, R, L, out, carry, F, G,
+                                   C, W, FL, s);
+    else
+      launch_sum<__nv_bfloat16, 1>(ptrs, wts, H, x, R, L, out, carry, F, G,
+                                   C, W, FL, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// The most bands a launch takes: kMaxBands for the stream form and the
+// SDDMM, kMaxIdBands for the indexed segment sum.
 extern "C" int banded_max_bands() { return kMaxBands; }
+extern "C" int banded_max_indexed_bands() { return kMaxIdBands; }
 
 // msg_ptrs: host array of K device pointers: the message streams, or,
 // with a table, the streams' ids (int32 [mk_pad], band-local).  table:
 // null for the stream form; else the source rows x ([n_src, F] of
 // `dtype`), slot j of band k reading row k * band_rows + msg_ptrs[k][j].
+// K: at most kMaxBands for streams, kMaxIdBands with a table.
 // prefix: int32 [n_tiles * 128 + 1], the row starts of the virtual order
 // (row_prefix).  carry: float32 [n_walkers, 2, F] scratch, n_walkers >=
 // ceil(prefix[-1] / chunk).  vector: nonzero when F * element size is a
@@ -969,47 +1032,22 @@ extern "C" int banded_segment_sum_launch(
     return x >= 1 && x <= kWarp && (x & (x - 1)) == 0;
   };
   const int V = vector ? (dtype == DT_FLOAT32 ? 4 : 8) : 1;
-  if (K < 1 || K > kMaxBands || n_tiles < 0 || F < 1 || chunk < 1 ||
+  const int max_bands = table != nullptr ? kMaxIdBands : kMaxBands;
+  if (K < 1 || K > max_bands || n_tiles < 0 || F < 1 || chunk < 1 ||
       n_walkers < 0 || !lanes_ok(lanes) || !lanes_ok(fix_lanes) ||
       heads < 1 || F % heads || (F / heads) % V ||
       (table != nullptr && band_rows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
-  StreamPtrs ptrs = {}, wts = {};
-  for (int k = 0; k < K; ++k) {
-    ptrs.p[k] = msg_ptrs[k];
-    if (wt_ptrs != nullptr) {
-      if (wt_ptrs[k] == nullptr)
-        return static_cast<int>(cudaErrorInvalidValue);
-      wts.p[k] = wt_ptrs[k];
-    }
-  }
   const Layout L = {static_cast<const int*>(bounds),
                     static_cast<const int*>(offs2d),
                     static_cast<const int*>(prefix), K, n_tiles};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  float* c = static_cast<float*>(carry);
-  const int G = lanes, C = chunk, W = n_walkers, FL = fix_lanes, H = heads;
-  const int R = band_rows;
-  if (dtype == DT_FLOAT32) {
-    const float* x = static_cast<const float*>(table);
-    if (vector)
-      launch_sum<float, 4>(ptrs, wts, H, x, R, L, o, c, F, G, C, W, FL, s);
-    else
-      launch_sum<float, 1>(ptrs, wts, H, x, R, L, o, c, F, G, C, W, FL, s);
-  } else if (dtype == DT_BFLOAT16) {
-    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(table);
-    if (vector)
-      launch_sum<__nv_bfloat16, 8>(ptrs, wts, H, x, R, L, o, c, F, G, C, W,
-                                   FL, s);
-    else
-      launch_sum<__nv_bfloat16, 1>(ptrs, wts, H, x, R, L, o, c, F, G, C, W,
-                                   FL, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const auto sum = table != nullptr ? sum_with<IdPtrs>
+                                    : sum_with<StreamPtrs>;
+  return sum(msg_ptrs, K, L, static_cast<float*>(out),
+             static_cast<float*>(carry), F, dtype, vector, lanes, chunk,
+             n_walkers, fix_lanes, wt_ptrs, heads, table, band_rows,
+             static_cast<cudaStream_t>(stream));
 }
 
 // msg_ptrs, seg_ptrs, lens: host arrays of K device pointers to the

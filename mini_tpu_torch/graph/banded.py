@@ -9,9 +9,9 @@ band's messages from one slice of ``x`` by the band's ids and folds the K
 segment-sorted message streams into one output through per-band offset
 staircases, with no per-edge destination array.
 
-The builder is the same NumPy code as ``mini_tpu.graph.banded``, with the
-same ``FAST_TABLE_BYTES`` band-height rule, so both packages build
-bitwise-identical layouts.  Everything here is host-side and cached by the
+The builder gives ``mini_tpu.graph.banded``'s layouts bitwise, with the
+same ``FAST_TABLE_BYTES`` band-height rule (one sort by band where that
+builder loops over the bands).  Everything here is host-side and cached by the
 GraphSlice fingerprint; :meth:`BandedLayout.dev` moves the arrays to a
 device once.
 """
@@ -196,7 +196,14 @@ def build_banded_layout(
     edge_chunk: int = EDGE_CHUNK,
 ) -> BandedLayout:
     """Group edges by gather-id band, preserving segment order within each
-    band.  Pad/ghost edges keep weight 0 and id 0 so they are no-ops."""
+    band.  Pad/ghost edges keep weight 0 and id 0 so they are no-ops.
+
+    One stable sort by band (a radix sort of 16-bit keys) groups every
+    band at once, and a count of each band's run of the sorted segments
+    gives its offsets: the layout of the JAX package's band-by-band loop,
+    array for array, in passes over the edges that do not grow with K
+    (ogbn-products' graph has 150 bands at 256 float32 columns), and in
+    no host array of K x n_pad but the int32 offsets the layout keeps."""
     n_pad = offsets.shape[0] - 1
     m_pad = gather_ids.shape[0]
     assert n_pad % ROW_TILE == 0
@@ -206,48 +213,55 @@ def build_banded_layout(
     offsets = offsets.astype(np.int64)
     gid = gather_ids.astype(np.int64)
     # segment id of every edge (offsets are for contiguous sorted segments)
-    seg = np.repeat(np.arange(n_pad), np.diff(offsets))
+    seg = np.repeat(np.arange(n_pad, dtype=np.int32), np.diff(offsets))
     band = gid // band_rows
     band = np.where(edge_valid, band, K - 1)  # pad edges -> last band
 
-    ids, w_b, lens, eids = [], [], [], []
-    band_offsets, band_valid = [], []
-    bounds = np.zeros((K, n_pad // ROW_TILE + 1), np.int32)
-    offs2d = np.zeros((K, n_pad // ROW_TILE, ROW_TILE), np.int32)
+    # the edges band by band, each band in segment order
+    key = band.astype(np.uint16) if K <= 1 << 16 else band
+    order = np.argsort(key, kind="stable")
+    del key
+    band_o = band[order]
+    valid_o = edge_valid[order]
+    lens = np.bincount(band, minlength=K)
+    mk_pad = np.maximum(-(-lens // edge_chunk) * edge_chunk, edge_chunk)
+    flat_base = np.zeros(K + 1, np.int64)
+    np.cumsum(mk_pad, out=flat_base[1:])
+    first = np.zeros(K + 1, np.int64)
+    np.cumsum(lens, out=first[1:])
+    # each edge's slot in the flat banded stream
+    slot = flat_base[band_o] + np.arange(m_pad) - first[band_o]
+    total = int(flat_base[-1])
+
+    def flat(values, dtype):
+        out = np.zeros(total, dtype)
+        out[slot] = values
+        return np.split(out, flat_base[1:-1])
+
+    ids = flat(np.where(valid_o, gid[order] - band_o * band_rows, 0), np.int32)
+    w_b = flat(np.where(valid_o, weights[order], 0.0), np.float32)
+    eids = flat(order, np.int32)
+    band_valid = flat(valid_o, bool)
     banded_rank = np.empty(m_pad, np.int64)
-    flat_base = 0
+    banded_rank[order] = slot
+    del slot, valid_o
+
+    # per-dst offsets within each band's stream, band by band: band k's
+    # edges are the sorted run first[k]:first[k + 1], in segment order
+    seg_o = seg[order]
+    del seg, band_o, order
+    offk = np.zeros((K, n_pad + 1), np.int32)
     for k in range(K):
-        sel = band == k  # segment order is kept by the filter
-        idx = np.nonzero(sel)[0]
-        mk = int(idx.shape[0])
-        mk_pad = max(_round_up(mk, edge_chunk), edge_chunk)
-        local = (gid[idx] - k * band_rows).astype(np.int32)
-        local = np.where(edge_valid[idx], local, 0).astype(np.int32)
-        wk = np.where(edge_valid[idx], weights[idx], 0.0).astype(np.float32)
-        pad = mk_pad - mk
-        ids.append(np.concatenate([local, np.zeros(pad, np.int32)]))
-        w_b.append(np.concatenate([wk, np.zeros(pad, np.float32)]))
-        eids.append(
-            np.concatenate([idx.astype(np.int32),
-                            np.zeros(pad, np.int32)])
-        )
-        band_valid.append(
-            np.concatenate([edge_valid[idx], np.zeros(pad, bool)])
-        )
-        lens.append(mk)
-        # per-dst offsets within this band's stream
-        cnt = np.bincount(seg[idx], minlength=n_pad)
-        offk = np.zeros(n_pad + 1, np.int64)
-        np.cumsum(cnt, out=offk[1:])
-        bounds[k] = offk[::ROW_TILE].astype(np.int32)
-        offs2d[k] = offk[:n_pad].reshape(-1, ROW_TILE).astype(np.int32)
-        band_offsets.append(offk.astype(np.int32))
-        banded_rank[idx] = flat_base + np.arange(mk)
-        flat_base += mk_pad
+        cnt = np.bincount(seg_o[first[k]:first[k + 1]], minlength=n_pad)
+        np.cumsum(cnt, out=offk[k, 1:], dtype=np.int32)
+    del seg_o
+    bounds = offk[:, ::ROW_TILE].copy()
+    offs2d = offk[:, :n_pad].reshape(K, -1, ROW_TILE)  # a view of offk
+    band_offsets = list(offk)
 
     # the flat stream's pad slots are the ranks no edge took; appending
     # them makes the rank a permutation of the whole padded stream
-    used = np.zeros(flat_base, bool)
+    used = np.zeros(total, bool)
     used[banded_rank] = True
     free = np.nonzero(~used)[0]
     banded_rank_full = np.concatenate([banded_rank, free]).astype(np.int32)
@@ -259,7 +273,7 @@ def build_banded_layout(
         m_pad=m_pad,
         ids=ids,
         weights=w_b,
-        lens=lens,
+        lens=[int(x) for x in lens],
         bounds=bounds,
         offs2d=offs2d,
         banded_rank=banded_rank_full,
@@ -302,6 +316,17 @@ def register_host_graph(fingerprint: str, host_arrays: dict) -> None:
     live = set(_HOST_CACHE)
     for cache in (_LAYOUT_CACHE, _COMPOSITE_CACHE):
         for k in [k for k in cache if k[0] not in live]:
+            del cache[k]
+
+
+def forget_host_graph(fingerprint: str) -> None:
+    """Drop what is cached for the graph ``fingerprint``: its host arrays,
+    its layouts with their device arrays, and its composite ranks, as an
+    eviction drops them; a later layout of it raises nothing and is None,
+    as for a graph never registered."""
+    _HOST_CACHE.pop(fingerprint, None)
+    for cache in (_LAYOUT_CACHE, _COMPOSITE_CACHE):
+        for k in [k for k in cache if k[0] == fingerprint]:
             del cache[k]
 
 

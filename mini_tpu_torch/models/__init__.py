@@ -19,6 +19,8 @@ from mini_tpu_torch.models.gat import (  # noqa: F401
     segment_softmax_by_dst,
 )
 from mini_tpu_torch.models.sage import (  # noqa: F401
+    SAGENorm,
+    sage_normalize,
     sage_init,
     sage_forward,
     sage_forward_cpu,

@@ -17,7 +17,10 @@ as a table: ``msgs`` is then the source rows ``x`` (``[n_src, F]``) and
 ``msgs[k][j] = x[k band_rows + ids[k][j]]`` for the K band-local int32 id
 streams ``ids[k]`` (``[mk_pad]``, ``BandedLayout.dev()["ids"]``), which
 the kernel reads in place of a gathered copy (the indexed form).  Both
-forms give the same bits.
+forms give the same bits.  The K pointers travel in the kernel's
+parameters: the stream form takes up to 128 bands, the indexed form up to
+1,024, as a graph of ogbn-products' size needs at 256 float32 columns
+(150 bands; launches past 128 are counted in ``wide_launches``).
 
 ``banded_sddmm``: ``dw[base_k + j] = <y[v], msgs[k][j]>`` for every slot
 ``j`` of band ``k`` in row ``v``'s segment; the flat float32 result has
@@ -68,10 +71,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0  # banded_segment_sum
 weighted_launches = 0  # those of them that scaled by weights
 indexed_launches = 0  # those of them that read rows of a table by ids
+wide_launches = 0  # those of them past the stream form's bands (128)
 sddmm_launches = 0  # banded_sddmm
-# the bound C entries and the kernel's band limit, set at the first launch
+# the bound C entries and the kernel's band limits, set at the first
+# launch: the stream form's and the SDDMM's, and the indexed form's
 _sum_launch = _sddmm_launch = None
-_max_bands = 0
+_max_bands = _max_indexed_bands = 0
 
 
 def _check_layout(bounds, offs2d, K, what, precision) -> None:
@@ -235,9 +240,11 @@ def _check_cuda(bounds, offs2d, tensors, device) -> None:
             raise ValueError(f"all inputs must lie on {device}")
 
 
-def _bind(K: int) -> None:
-    """Bind the library's entries at the first launch; check K."""
-    global _sum_launch, _sddmm_launch, _max_bands
+def _bind(K: int, indexed: bool = False) -> None:
+    """Bind the library's entries at the first launch; check K against the
+    kernel's limit: the stream form's and the SDDMM's, or the indexed
+    form's (``indexed``)."""
+    global _sum_launch, _sddmm_launch, _max_bands, _max_indexed_bands
     if _sum_launch is None:
         P, I, V = ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p
         # (msg_ptrs, K, bounds, offs2d, prefix, out, carry, n_tiles, F,
@@ -255,8 +262,13 @@ def _bind(K: int) -> None:
              ctypes.POINTER(ctypes.c_longlong), I, V, V, V, I, I, I, I, I, I,
              I, V])
         _max_bands = _build.bind("spmm_banded", "banded_max_bands", [])()
-    if K > _max_bands:
-        raise ValueError(f"{K} bands exceed the kernel's {_max_bands}")
+        _max_indexed_bands = _build.bind("spmm_banded",
+                                         "banded_max_indexed_bands", [])()
+    limit = max(_max_bands, _max_indexed_bands) if indexed else _max_bands
+    if K > limit:
+        form = "indexed form" if indexed else "stream form and SDDMM"
+        raise ValueError(f"{K} bands exceed the kernel's {limit} "
+                         f"({form})")
 
 
 def banded_segment_sum_plain(
@@ -486,7 +498,7 @@ def segment_sum_cuda(
                          f" on {device}")
     row_prefix = row_prefix.contiguous()
     K = len(srcs)
-    _bind(K)
+    _bind(K, indexed=table is not None)
     elem = reads[0].element_size()
     vector = _vector_ok(reads)
     lanes, chunk, fix_lanes = kernel_plan(F, elem, vector)
@@ -542,10 +554,11 @@ def banded_segment_sum(
     out = segment_sum_cuda("banded_segment_sum", bounds, offs2d, msgs,
                            precision, edge_chunk, row_prefix, weights, ids,
                            band_rows)
-    global launches, weighted_launches, indexed_launches
+    global launches, weighted_launches, indexed_launches, wide_launches
     launches += 1
     weighted_launches += weights is not None
     indexed_launches += ids is not None
+    wide_launches += len(ids if ids is not None else msgs) > _max_bands
     return out
 
 

@@ -867,3 +867,67 @@ def test_indexed_launch_arguments(monkeypatch, layouts, F, heads, dtype):
     assert call["vector"] == int(rows and not split)
     assert (call["indexed"], call["band_rows"]) == (True, lay.band_rows)
     assert call["weighted"] == (w is not None)
+
+
+def _wide_layout():
+    """153 bands of 128 rows (19,501 rows padded to 19,584) over 3,000
+    edges: past the 128 bands that the stream form takes."""
+    rng = np.random.RandomState(4)
+    n = 19_500
+    lay = _pull_layout(from_edges(rng.randint(0, n, 3000),
+                                  rng.randint(0, n, 3000), num_nodes=n), 128)
+    assert lay.K == 153
+    return lay
+
+
+@pytest.mark.parametrize("heads", [None, 1, 4])
+def test_wide_launch_arguments(monkeypatch, heads):
+    """A layout of 153 bands through the indexed form's launch path: the
+    153 id streams reach the C entry (emulated on CPU memory) under the
+    indexed form's limit; the result is the stream form's scheduled
+    emulation on the gathered streams bit for bit, and the plain sum within
+    SUM_TOL; ``wide_launches`` counts the launch beside ``launches`` and
+    ``indexed_launches``.  The stream form is refused past its 128 bands,
+    the indexed form past its own limit."""
+    from mini_tpu_torch.ops.kernels import _build
+    from test_torch_gather import on_card
+
+    monkeypatch.setattr(k2, "_sum_launch", fake_sum_launch)
+    monkeypatch.setattr(k2, "_sddmm_launch", object())
+    monkeypatch.setattr(k2, "_max_bands", 128)
+    monkeypatch.setattr(k2, "_max_indexed_bands", 1024)
+    monkeypatch.setattr(_build, "stream", lambda device_index: 0)
+    monkeypatch.setattr(fake_sum_launch, "calls", [], raising=False)
+    lay = _wide_layout()
+    args = _kernel_args(lay)
+    card = [on_card(a) for a in args]
+    prefix = row_prefix(*args)
+    x = _table(lay, 40, torch.float32)
+    w = None if heads is None else _weights(lay, heads)
+    kw = dict(row_prefix=on_card(prefix),
+              weights=None if w is None else [on_card(v) for v in w])
+
+    def indexed():
+        return k2.banded_segment_sum(
+            *card, on_card(x), ids=[on_card(i) for i in _ids(lay)],
+            band_rows=lay.band_rows, **kw)
+
+    before = (k2.launches, k2.indexed_launches, k2.wide_launches)
+    got = indexed()
+    assert (k2.launches, k2.indexed_launches, k2.wide_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    call, = fake_sum_launch.calls
+    assert call["indexed"] and call["band_rows"] == 128
+    streams = _gather_then(lay, x)
+    assert torch.equal(got, k2.banded_segment_sum_scheduled_plain(
+        *args, streams, row_prefix=prefix, weights=w))
+    _assert_close(got, k2.banded_segment_sum_plain(
+        *args, x, weights=w, ids=_ids(lay), band_rows=lay.band_rows))
+    with pytest.raises(ValueError, match="153 bands exceed the kernel's "
+                                         "128"):
+        k2.banded_segment_sum(*card, [on_card(s) for s in streams], **kw)
+    monkeypatch.setattr(k2, "_max_indexed_bands", 150)
+    with pytest.raises(ValueError, match="153 bands exceed the kernel's "
+                                         "150"):
+        indexed()
+    assert k2.wide_launches == before[2] + 1
