@@ -983,8 +983,10 @@ def wide_bands_at_products_shape(device) -> dict:
     256 (K = 150, the wide tables) and F = 100 (K = 75), pull and push:
     the indexed launch within SUM_TOL of a float64 sum band by band (the
     plain version would gather the whole 127 GB stream at F = 256), two
-    launches bitwise equal, the wide launches counted; then one launch
-    timed against the bytes ``sage_segment_sum_roofline`` counts for it.
+    launches bitwise equal, the wide and the scanning launches counted;
+    then one launch timed against the bytes ``sage_segment_sum_roofline``
+    counts for it.  The K = 150 pull launch is also checked and timed over
+    rows 4 floats wide: the walk's own cost, apart from the rows' traffic.
     Returns each launch's numbers and the SAGE step's, for the JSON line
     of ``--wide``."""
     import torch
@@ -1019,33 +1021,38 @@ def wide_bands_at_products_shape(device) -> dict:
             w = norm.banded[lay.band_rows][direction == "push"]
             x = torch.rand(lay.n_pad, F, device=device) - 0.5
 
-            def launch():
+            def launch(x=x):
                 return k2.banded_segment_sum(
                     dev["bounds"], dev["offs2d"], x,
                     row_prefix=dev["row_prefix"], weights=w,
                     edge_chunk=lay.edge_chunk, ids=dev["ids"],
                     band_rows=lay.band_rows)
 
-            wide = k2.wide_launches
-            got, again = launch(), launch()
+            def checked(x):  # within SUM_TOL of a float64 sum band by band
+                got, again = launch(x), launch(x)
+                want = torch.zeros(lay.n_pad, x.shape[1],
+                                   dtype=torch.float64, device=device)
+                for k in range(K):  # a hub's band holds millions of slots
+                    seg = k2._segment_ids(dev["bounds"], dev["offs2d"], k)
+                    for lo in range(0, seg.numel(), 1 << 22):
+                        hi = min(lo + (1 << 22), seg.numel())
+                        rows = x[k * lay.band_rows
+                                 + dev["ids"][k][lo:hi].long()]
+                        want.index_add_(0, seg[lo:hi],
+                                        (rows * w[k][lo:hi, None]).double())
+                        del rows
+                torch.cuda.synchronize(device)
+                err = float((got - want).abs().max())
+                limit = SUM_TOL * float(want.abs().max())
+                assert err <= limit, (x.shape[1], direction, err, limit)
+                assert torch.equal(got, again), (x.shape[1], direction,
+                                                 "two launches")
+                return err, limit
+
+            wide, scanned = k2.wide_launches, k2.scanned_launches
+            err, limit = checked(x)
             assert k2.wide_launches - wide == (2 if K > 128 else 0)
-            want = torch.zeros(lay.n_pad, F, dtype=torch.float64,
-                               device=device)
-            for k in range(K):  # a hub's band holds millions of slots
-                seg = k2._segment_ids(dev["bounds"], dev["offs2d"], k)
-                for lo in range(0, seg.numel(), 1 << 22):
-                    hi = min(lo + (1 << 22), seg.numel())
-                    rows = x[k * lay.band_rows
-                             + dev["ids"][k][lo:hi].long()]
-                    want.index_add_(0, seg[lo:hi],
-                                    (rows * w[k][lo:hi, None]).double())
-                    del rows
-            torch.cuda.synchronize(device)
-            err = float((got - want).abs().max())
-            limit = SUM_TOL * float(want.abs().max())
-            assert err <= limit, (F, direction, err, limit)
-            assert torch.equal(got, again), (F, direction, "two launches")
-            del want, again, got
+            assert k2.scanned_launches - scanned == 2
             ms = cuda_ms(launch, device, windows=3, min_calls=5)
             nbytes = 4 * g.m * F + 4 * g.m + 4 * g.n * F
             bnd = bound(nbytes)
@@ -1058,6 +1065,20 @@ def wide_bands_at_products_shape(device) -> dict:
             found["launches"].append(dict(
                 K=K, F=F, direction=direction, wide=K > 128, max_abs_err=err,
                 limit=limit, ms=ms, bound_ms=bnd["bound_ms"]))
+            if K > 128 and direction == "pull":
+                # the same launch over rows 4 floats wide: the walk's own
+                # cost, next to nothing of row traffic
+                x4 = torch.rand(lay.n_pad, 4, device=device) - 0.5
+                err4, limit4 = checked(x4)
+                walk_ms = cuda_ms(lambda: launch(x4), device, windows=3,
+                                  min_calls=5)
+                log(f"# kernel 2 products shape K={K} F=4 {direction} "
+                    f"weighted, the walk alone: max err {err4:.3g} (limit "
+                    f"{limit4:.3g}), two launches bitwise; {walk_ms:.3f} ms "
+                    f"a launch")
+                found["walk_ms"] = dict(K=K, F=4, direction=direction,
+                                        max_abs_err=err4, ms=walk_ms)
+                del x4
     found["sage_step"] = sage_steps_at_products_shape(g, norm, device)
     del g, norm
     torch.cuda.empty_cache()
@@ -3730,15 +3751,17 @@ KERNELS = {
 
 def counters() -> dict:
     """kernel -> (its wrapper module, the name of its launch counter), and
-    ``banded_segment_sum.weighted``, ``.indexed`` and ``.wide``, kernel 2's
-    launches that scaled by weights, that read rows of a table by ids and
-    whose layout had more than 128 bands."""
+    ``banded_segment_sum.weighted``, ``.indexed``, ``.wide`` and
+    ``.scanned``, kernel 2's launches that scaled by weights, that read rows
+    of a table by ids, whose layout had more than 128 bands and whose
+    walker scanned a row's bands a window at a time."""
     import importlib
 
     refs = {name: (m, attr) for name, (m, attr, _, _) in KERNELS.items()}
     refs["banded_segment_sum.weighted"] = ("spmm_banded", "weighted_launches")
     refs["banded_segment_sum.indexed"] = ("spmm_banded", "indexed_launches")
     refs["banded_segment_sum.wide"] = ("spmm_banded", "wide_launches")
+    refs["banded_segment_sum.scanned"] = ("spmm_banded", "scanned_launches")
     return {name: (importlib.import_module(f"mini_tpu_torch.ops.kernels.{m}"),
                    attr) for name, (m, attr) in refs.items()}
 

@@ -54,6 +54,19 @@
 //   walker finds its first row by binary search over row_prefix and walks
 //   forward; its slots in band k are one contiguous range of stream k, and
 //   every slot is read once.
+// - A walker finds a row's segments by scanning its bands G at a time (G
+//   its lanes, below): lane i loads the bounds of band k0 + i, a vote
+//   (__ballot_sync over the walker's lanes) marks the window's non-empty
+//   bands, and the walker takes them in band order (__ffs), each segment's
+//   bounds shuffled from the lane that loaded it.  A row's next window is
+//   loaded only while the row has slots left (row_prefix counts them), so
+//   an empty (row, band) pair costs no step of its own: a row of K bands
+//   is at most ceil(K / G) loads issued together, not K dependent pairs
+//   of loads.  The order of the slots, and so of the additions, is the
+//   serial walk's.  A walker of one lane (rows of 16 bytes or less) scans
+//   a band at a time and pays for the vote: at ogbn-products' size, K =
+//   150, over 4-float rows 27.99 ms a launch against the serial walk's
+//   25.06 (the batch sweep's call, below).
 // - A walker is G lanes, each holding V columns of a message row in one
 //   16-byte load: V = 4 in float32, 8 in bf16, so at F = 128 float32 one
 //   warp instruction reads a whole 512-byte row, and at F = 32 (128 bytes)
@@ -61,7 +74,7 @@
 //   stream that is not 16-byte aligned, takes the scalar form (V = 1) of
 //   the same kernel, which the wrapper chooses.  Columns past 32 V go to
 //   more column blocks (gridDim.y).
-// - A walker keeps a batch of loads in flight (4 rows in float32, 8 in
+// - A walker keeps a batch of loads in flight (3 rows in float32, 8 in
 //   bf16): it computes the batch's slot addresses (segments are
 //   contiguous, so they are known ahead), starts the loads, then adds
 //   them into its row's float32 accumulators, flushing at each row
@@ -92,7 +105,7 @@
 // W; PERF.md): the old schedule 3.0006 ms at F = 128 float32, 11% of the
 // bound; this one 0.4308 ms, 77%, and 61% in bf16.  Not built: a ring of
 // shared-memory stages filled by cp.async.bulk / TMA.  The register batch
-// keeps 4 x 512 bytes in flight per warp at F = 128 float32, which
+// keeps 3 x 512 bytes in flight per warp at F = 128 float32, which
 // already reaches three quarters of the bound; the ring is the next step
 // for bf16 and narrow rows.
 //
@@ -115,17 +128,20 @@
 // MB table fits in the 50 MB L2 and the walk takes 0.243 ms against the
 // stream form's bound of 0.333 ms; at ogbn-arxiv's size, F = 256, x is
 // 173 MB and a step's sums run at 73.6% of that bound (58% as streams).
-// The batch, swept on the H100 (NVIDIA H100 80GB HBM3, 700 W) at the
-// training cells' shapes on ogbn-arxiv's graph, weighted, float32, ms a
-// launch for batches 1 / 2 / 3 / 4 / 8: F = 256, K = 11: 0.970 / 0.992 /
-// 0.980 / 1.233 / 2.771; F = 1,024, K = 42, [mk, 4] weights: 7.68 / 7.62
-// / 7.50 / 9.47 / 17.28 (4 and 8 in an earlier call, whose batch of 2
-// read within 0.4% of these).  A larger batch takes registers (64 at 3,
-// the weighted kernel's cap at 4 blocks an SM) and costs resident warps;
-// with the cap raised to 5 or 6 blocks a batch of 2 or 3 lost 9-73%.  So
-// 3 in float32.  In bf16 at F = 256, batches 2 / 4 / 8: 0.855 / 0.973 /
-// 1.221; so 2.  The stream form's aggregation at those shapes, the
-// gathers and the stream kernel: 0.99 + 1.25 ms and 3.93 + 7.85 ms.
+// The batch, swept on the H100 (NVIDIA H100 80GB HBM3, 700 W) with the
+// walk that scans a row's bands, at the training cells' shapes, weighted,
+// ms a launch for float32 batches 1 / 2 / 3 / 4 [the serial walk's kernel
+// at 3, same call]: ogbn-products' size (the benchmark's graph, pull) F =
+// 256, K = 150: 60.67 / 56.31 / 68.49 / 80.09 [140.52]; F = 100, K = 75:
+// 23.98 / 21.50 / 28.64 / 34.26 [37.24]; ogbn-arxiv's size F = 256, K =
+// 11: 0.860 / 0.765 / 1.083 / 1.289 [0.984]; F = 1,024, K = 42, [mk, 4]
+// weights: 3.96 / 3.52 / 4.61 / 5.49 [7.46].  The scan's state takes
+// registers: at 3 the weighted float32 kernel (64, its cap at 4 blocks an
+// SM) spills 76 bytes; at 2 it spills none.  So 2 in float32.  In bf16,
+// batches 2 / 4 [the serial walk at 2]: 37.10 / 34.60 [85.53], 56.37 /
+// 58.96 [109.69] (F = 100: the scalar form, 200-byte rows), 0.802 / 0.742
+// [0.853], 3.04 / 2.83 [5.15]; so 4 (99 registers of its 128, no spill).
+// Every launch of the sweep was bitwise the serial walk's.
 //
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -158,13 +174,10 @@ struct StreamPtrs {
 
 // The indexed form's id (and weight) pointers: 8 KB a table, so the
 // weighted kernel's two tables pass the classic 4 KB of parameters (the
-// 32 KB that CUDA 12.1 allows on Volta and later).  Measured at
-// ogbn-products' size (2.45M rows, 123.7M slots, K = 150, weighted;
-// NVIDIA H100 80GB HBM3, 700 W): 140.3 ms a pull launch at F = 256, 27.6%
-// of the bytes bound, and 25.1 ms over rows 4 floats wide.  What K = 11
-// hid is the walk: a walker steps through every (row, band) pair, empty
-// or not, with two dependent offs2d loads each, and at F = 256 float32
-// the second column block walks every slot again.
+// 32 KB that CUDA 12.1 allows on Volta and later).  At ogbn-products'
+// size (2.45M rows, 123.7M slots, K = 150, weighted) a pull launch at F =
+// 256 takes 56.3 ms, 69% of its bytes bound (header's sweep); its second
+// column block walks every slot again.
 struct IdPtrs {
   const void* p[kMaxIdBands];
 };
@@ -282,45 +295,117 @@ struct Layout {
   }
 };
 
-// A walker's place in the virtual order: slot j of stream k, in row v's
-// segment, which ends at e.
-struct Cursor {
-  int v, k, j, e;
+// The G lanes of a walker: its lane among them, its group's first lane in
+// the warp, and the group's lanes as the mask of its warp primitives.  G is
+// a power of two and a block's walkers are G-aligned, so walkers that share
+// a warp (G < 32) never share a mask, and each shuffles among its own lanes.
+struct Lanes {
+  int G, lane, base;
+  unsigned mask;
 };
 
-// To the first slot of the next non-empty segment; the caller knows that
-// one remains.  Rows with no slot are stepped over one by one for a few
-// rows, then by binary search (the star graph's ghost row lies 100K empty
-// rows past its hub).
-__device__ __forceinline__ void next_segment(const Layout& L, Cursor& c,
-                                             int n_rows) {
-  do {
-    if (++c.k == L.K) {
-      c.k = 0;
-      ++c.v;
-      for (int i = 0; i < kRowSteps && L.prefix[c.v + 1] == L.prefix[c.v];
-           ++i)
-        ++c.v;
-      if (L.prefix[c.v + 1] == L.prefix[c.v])
-        c.v = last_le(L.prefix, n_rows, L.prefix[c.v]);
-    }
-    L.segment(c.v, c.k, c.j, c.e);
-  } while (c.j == c.e);
+__device__ __forceinline__ Lanes lanes_of(int G) {
+  Lanes g;
+  g.G = G;
+  g.lane = threadIdx.x % G;
+  g.base = threadIdx.x % kWarp - g.lane;
+  g.mask = (G == kWarp ? 0xffffffffu : (1u << G) - 1u) << g.base;
+  return g;
 }
 
-// The slot `start` of the virtual order: its row, then its band and slot.
-__device__ __forceinline__ Cursor first_slot(const Layout& L, int start,
-                                             int n_rows) {
+// A walker's place in the virtual order: slot j of stream k, in row v's
+// segment, which ends at e; and its scan of row v's bands.  The scan holds
+// a window of G bands from k0: lane i the segment [ws, we) of band k0 + i
+// (empty past K), `todo` the window's non-empty bands after k (bit i for
+// band k0 + i, the same in every lane), `rest` row v's slots in bands
+// after k.
+struct Cursor {
+  int v, k, j, e;
+  int k0, ws, we, rest;
+  unsigned todo;
+};
+
+// The G lanes load the window of row v at c.k0 together, one band a lane,
+// and vote on which of its bands hold a slot.
+__device__ __forceinline__ void scan_window(const Layout& L, const Lanes& g,
+                                            Cursor& c) {
+  const int k = c.k0 + g.lane;
+  c.ws = c.we = 0;
+  if (k < L.K) L.segment(c.v, k, c.ws, c.we);
+  c.todo = (__ballot_sync(g.mask, c.we > c.ws) & g.mask) >> g.base;
+}
+
+// The window's next non-empty band: its segment, from the lane that
+// loaded it.
+__device__ __forceinline__ void take(const Lanes& g, Cursor& c) {
+  const int i = __ffs(c.todo) - 1;
+  c.todo &= c.todo - 1;
+  c.k = c.k0 + i;
+  c.j = __shfl_sync(g.mask, c.ws, i, g.G);
+  c.e = __shfl_sync(g.mask, c.we, i, g.G);
+  c.rest -= c.e - c.j;
+}
+
+// To the first slot of the next non-empty segment; the caller knows that
+// one remains.  An empty (row, band) pair costs no step of its own: the
+// window's vote skips it, a row's later windows are loaded only while it
+// has slots left, and a row with none is stepped over one by one for a
+// few rows, then by binary search (the star graph's ghost row lies 100K
+// empty rows past its hub).
+__device__ __forceinline__ void next_segment(const Layout& L, const Lanes& g,
+                                             Cursor& c, int n_rows) {
+  while (c.todo == 0) {
+    if (c.rest == 0 || c.k0 + g.G >= L.K) {
+      ++c.v;
+      const int p0 = L.prefix[c.v];
+      int p1 = L.prefix[c.v + 1];
+      for (int i = 0; i < kRowSteps && p1 == p0; ++i) p1 = L.prefix[++c.v + 1];
+      if (p1 == p0) {
+        c.v = last_le(L.prefix, n_rows, p0);
+        p1 = L.prefix[c.v + 1];
+      }
+      c.k0 = 0;
+      c.rest = p1 - p0;
+    } else {
+      c.k0 += g.G;
+    }
+    scan_window(L, g, c);
+  }
+  take(g, c);
+}
+
+// The slot `start` of the virtual order: its row, then its window, band
+// and slot, the window's slots counted up its lanes.
+__device__ __forceinline__ Cursor first_slot(const Layout& L, const Lanes& g,
+                                             int start, int n_rows) {
   Cursor c;
   c.v = last_le(L.prefix, n_rows, start);
-  int o = start - L.prefix[c.v];
-  for (c.k = 0;; ++c.k) {
-    L.segment(c.v, c.k, c.j, c.e);
-    if (o < c.e - c.j) break;
-    o -= c.e - c.j;
+  const int p0 = L.prefix[c.v];
+  int o = start - p0;
+  c.rest = L.prefix[c.v + 1] - p0;
+  for (c.k0 = 0;; c.k0 += g.G) {
+    scan_window(L, g, c);
+    const int len = c.we - c.ws;
+    int upto = len;  // the window's slots in its bands up to this lane's
+    for (int d = 1; d < g.G; d <<= 1) {
+      const int y = __shfl_up_sync(g.mask, upto, d, g.G);
+      if (g.lane >= d) upto += y;
+    }
+    const int in_window = __shfl_sync(g.mask, upto, g.G - 1, g.G);
+    if (o < in_window) {
+      const unsigned past =
+          (__ballot_sync(g.mask, upto > o) & g.mask) >> g.base;
+      const int i = __ffs(past) - 1;
+      c.todo &= ~((2u << i) - 1u);
+      c.k = c.k0 + i;
+      c.j = __shfl_sync(g.mask, c.ws - (upto - len), i, g.G) + o;
+      c.e = __shfl_sync(g.mask, c.we, i, g.G);
+      c.rest -= __shfl_sync(g.mask, upto, i, g.G);
+      return c;
+    }
+    o -= in_window;
+    c.rest -= in_window;
   }
-  c.j += o;
-  return c;
 }
 
 // A finished row's sums: to out when the row lies inside this chunk
@@ -342,12 +427,21 @@ __device__ __forceinline__ void flush(const Layout& L, float* out,
   store<V>(dst + c0, acc);
 }
 
-// Slots a walker has in flight: 4 float32 or 8 bf16 rows of 16 bytes a
-// lane, the faster of 4, 8 and 16 in a sweep on the H100 at rmat16 and
-// rmat18 (8 float32 loads take enough registers to halve the resident
-// warps).
+// Slots a walker has in flight: 3 float32 or 8 bf16 rows of 16 bytes a
+// lane.  8 in bf16 was the faster of 4, 8 and 16 in a sweep on the H100 at
+// rmat16 and rmat18, as 4 was in float32 (8 float32 loads take enough
+// registers to halve the resident warps) until the scan of a row's bands
+// took registers too: at 4 the weighted float32 kernel (64 registers)
+// spills 64 bytes, at 3 none.  Swept with the scan (NVIDIA H100 80GB
+// HBM3, 700 W), device ms for float32 batches 2 / 3 / 4 [the serial walk
+// at 4, same call]: rmat16 K = 3, F = 128 weighted 0.418 / 0.414 / 0.648
+// [0.420], unweighted 0.411 / 0.405 / 0.459 [0.411], F = 32 weighted
+// 0.148 / 0.145 / 0.200 [0.149]; segment_sum (K = 1, F = 128) 0.411 /
+// 0.407 / 0.458 [0.405]; ogbn-arxiv's size, weighted, K = 11, F = 256
+// 1.161 / 1.120 / 1.434 [1.222], K = 42, F = 1,024, [mk, 4] 4.51 / 4.38
+// / 5.64 [7.73]; every launch bitwise the serial walk's.
 template <typename T>
-constexpr int kBatch = sizeof(T) == 4 ? 4 : 8;
+constexpr int kBatch = sizeof(T) == 4 ? 3 : 8;
 
 // A walker of the segment sum (the two kernels below).  kWeighted: scale
 // each message by its slot's weight, wts.p[k][j * H + head], head = c0 /
@@ -378,7 +472,8 @@ __device__ __forceinline__ void walk(const StreamPtrs& msgs,
   const bool lane_on = c0 < F;
   const int head = kWeighted && lane_on ? c0 / head_cols : 0;
 
-  Cursor c = first_slot(L, static_cast<int>(start), n_rows);
+  const Lanes g = lanes_of(G);
+  Cursor c = first_slot(L, g, static_cast<int>(start), n_rows);
 
   float acc[V];
 #pragma unroll
@@ -393,7 +488,7 @@ __device__ __forceinline__ void walk(const StreamPtrs& msgs,
 #pragma unroll
     for (int u = 0; u < B; ++u) {
       if (u < n) {
-        if (c.j == c.e) next_segment(L, c, n_rows);
+        if (c.j == c.e) next_segment(L, g, c, n_rows);
         src[u] = reinterpret_cast<const Raw*>(
             static_cast<const T*>(msgs.p[c.k]) +
             static_cast<size_t>(c.j) * F + c0);
@@ -454,7 +549,7 @@ banded_segment_sum_kernel(const __grid_constant__ StreamPtrs msgs,
 // Slots an indexed walker has in flight: a batch's rows of x, while the
 // next batch's ids (and weights) load.  Swept on the H100 (header).
 template <typename T>
-constexpr int kIndexedBatch = sizeof(T) == 4 ? 3 : 2;
+constexpr int kIndexedBatch = sizeof(T) == 4 ? 2 : 4;
 
 // A walker of the indexed form (the two kernels below): the walk of
 // `walk`, the same slots in the same order and the same additions, with
@@ -480,7 +575,8 @@ __device__ __forceinline__ void walk_indexed(
   const int end = static_cast<int>(stop < total ? stop : total);
   const bool lane_on = c0 < F;
   const int head = kWeighted && lane_on ? c0 / head_cols : 0;
-  Cursor c = first_slot(L, static_cast<int>(start), n_rows);
+  const Lanes g = lanes_of(G);
+  Cursor c = first_slot(L, g, static_cast<int>(start), n_rows);
 
   // the staged batch: each slot's row of x (its band's first row and its
   // id), its weight and its output row
@@ -491,7 +587,7 @@ __device__ __forceinline__ void walk_indexed(
 #pragma unroll
   for (int u = 0; u < B; ++u) {
     if (u < n) {
-      if (c.j == c.e) next_segment(L, c, n_rows);
+      if (c.j == c.e) next_segment(L, g, c, n_rows);
       lo[u] = c.k * band_rows;
       id[u] = __ldg(static_cast<const int*>(ids.p[c.k]) + c.j);
       if constexpr (kWeighted)
@@ -527,7 +623,7 @@ __device__ __forceinline__ void walk_indexed(
 #pragma unroll
     for (int u = 0; u < B; ++u) {
       if (u < n) {
-        if (c.j == c.e) next_segment(L, c, n_rows);
+        if (c.j == c.e) next_segment(L, g, c, n_rows);
         lo[u] = c.k * band_rows;
         id[u] = __ldg(static_cast<const int*>(ids.p[c.k]) + c.j);
         if constexpr (kWeighted)

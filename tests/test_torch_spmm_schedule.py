@@ -8,7 +8,9 @@ held against the plain version and the JAX twin; a line-by-line Python
 transcription of the kernel's walker and fix-up (``_walk_like_the_kernel``)
 must give the emulation's result bit for bit, since both add in float32
 in the same order; and the schedule cached by ``BandedLayout.dev()`` is
-reused by the model path and dropped with its graph.
+reused by the model path and dropped with its graph.  The tests marked
+``cuda`` launch the kernel itself on the card against the emulation, and
+skip without one.
 
 Tolerance: the emulation and the plain version sum the same terms, in
 float32 and in float64, so they differ by float32 rounding of sums of up
@@ -20,14 +22,10 @@ import gc
 import sys
 import weakref
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from mini_tpu.ops.pallas.spmm_banded import (
-    banded_segment_sum as jax_banded_segment_sum,
-)
 from mini_tpu_torch.graph import GraphSlice, erdos_renyi, from_edges, rmat
 from mini_tpu_torch.graph import banded as tbanded
 from mini_tpu_torch.graph.banded import build_banded_layout, row_prefix
@@ -154,18 +152,96 @@ def _weigh_like_the_kernel(m, w, heads):
     return _round_bf16(prod) if m.dtype == torch.bfloat16 else prod
 
 
+def _scan_slots(bounds, offs2d, prefix, K, G, start):
+    """The slots ``(v, k, j)`` of the virtual order from ``start`` on, as
+    a walker of csrc/spmm_banded.cu finds them, transcribed statement by
+    statement: ``first_slot``, then ``next_segment`` at each segment's
+    end.  Its G lanes load a window of G bands of row v at once, lane i
+    band k0 + i (``scan_window``); ``todo`` is their vote, bit i set where
+    band k0 + i holds a slot; ``rest`` counts the row's slots in bands past
+    the one taken, so a row's later windows load only while it has some."""
+    n_rows = offs2d.shape[0] * 128
+
+    def segment(v, k):
+        t, r = divmod(v, 128)
+        e = offs2d[t, k, r + 1] if r + 1 < 128 else bounds[k, t + 1]
+        return int(offs2d[t, k, r]), int(e)
+
+    def window(v, k0):  # scan_window
+        ws, we = np.zeros(G, np.int64), np.zeros(G, np.int64)
+        for lane in range(G):
+            if k0 + lane < K:
+                ws[lane], we[lane] = segment(v, k0 + lane)
+        return ws, we, sum(1 << i for i in range(G) if we[i] > ws[i])
+
+    def lowest(bits):  # __ffs - 1
+        return (bits & -bits).bit_length() - 1
+
+    # first_slot: the row, then the window whose lanes' running count of
+    # slots passes start's place in the row
+    v = int(np.searchsorted(prefix[:n_rows], start, side="right")) - 1
+    p0 = int(prefix[v])
+    o, rest, k0 = start - p0, int(prefix[v + 1]) - p0, 0
+    while True:
+        ws, we, todo = window(v, k0)
+        upto = np.cumsum(we - ws)
+        if o < upto[G - 1]:
+            i = lowest(sum(1 << x for x in range(G) if upto[x] > o))
+            todo &= ~((2 << i) - 1)
+            k = k0 + i
+            j = int(ws[i] - (upto[i] - (we[i] - ws[i]))) + o
+            e = int(we[i])
+            rest -= int(upto[i])
+            break
+        o -= int(upto[G - 1])
+        rest -= int(upto[G - 1])
+        k0 += G
+    while True:
+        if j == e:  # next_segment
+            while todo == 0:
+                if rest == 0 or k0 + G >= K:  # the next row with a slot
+                    v += 1
+                    p0, p1 = int(prefix[v]), int(prefix[v + 1])
+                    for _ in range(4):
+                        if p1 != p0:
+                            break
+                        v += 1
+                        p1 = int(prefix[v + 1])
+                    if p1 == p0:
+                        v = int(np.searchsorted(prefix[:n_rows], p0,
+                                                "right")) - 1
+                        p1 = int(prefix[v + 1])
+                    k0, rest = 0, p1 - p0
+                else:
+                    k0 += G
+                ws, we, todo = window(v, k0)
+            i = lowest(todo)  # take
+            todo &= todo - 1
+            k, j, e = k0 + i, int(ws[i]), int(we[i])
+            rest -= e - j
+        yield v, k, j
+        j += 1
+
+
 def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes,
-                          weights=None, heads=1, ids=None, band_rows=None):
+                          weights=None, heads=1, ids=None, band_rows=None,
+                          lanes=None):
     """``banded_segment_sum_kernel`` and ``banded_fixup_kernel`` of
     csrc/spmm_banded.cu, transcribed statement by statement (one walker at
     a time, all columns at once), in numpy float32, each message first
-    scaled by its weight where ``weights`` are given.  With ``ids`` (the
-    indexed walker) ``msgs`` is the table, and the walker reads slot ``j``
-    of band ``k`` as its row ``k band_rows + ids[k][j]``, weighted there.
-    Unwritten outputs and carries are NaN, so a row written by nobody, or
-    a carry read before it was written, shows."""
+    scaled by its weight where ``weights`` are given; each walker finds
+    its slots by :func:`_scan_slots` with ``lanes`` lanes (default: the
+    kernel's lanes for these rows).  With ``ids`` (the indexed walker)
+    ``msgs`` is the table, and the walker reads slot ``j`` of band ``k``
+    as its row ``k band_rows + ids[k][j]``, weighted there.  Unwritten
+    outputs and carries are NaN, so a row written by nobody, or a carry
+    read before it was written, shows."""
     bounds, offs2d = bounds.numpy(), offs2d.numpy()
     prefix = prefix.numpy().astype(np.int64)
+    rows_of = msgs if ids is None else [msgs]
+    if lanes is None:
+        lanes = k2.kernel_plan(rows_of[0].shape[1], rows_of[0].element_size(),
+                               k2._vector_ok(rows_of))[0]
     if ids is None:
         msgs = ([m.float().numpy() for m in msgs] if weights is None else
                 [_weigh_like_the_kernel(m, w, heads)
@@ -192,11 +268,6 @@ def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes,
     out = np.full((n_rows, F), np.nan, np.float32)
     carry = np.full((n_walkers, 2, F), np.nan, np.float32)
 
-    def segment(v, k):
-        t, r = divmod(v, 128)
-        e = offs2d[t, k, r + 1] if r + 1 < 128 else bounds[k, t + 1]
-        return int(offs2d[t, k, r]), int(e)
-
     def flush(row, acc, start, stop, walker):
         p0, p1 = prefix[row], prefix[row + 1]
         if p0 >= start and p1 <= stop:
@@ -211,37 +282,15 @@ def _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk, fix_lanes,
             continue
         stop = start + chunk
         end = min(stop, total)
-        v = int(np.searchsorted(prefix[:n_rows], start, side="right")) - 1
-        o, k = start - int(prefix[v]), 0
-        while True:
-            j, e = segment(v, k)
-            if o < e - j:
-                break
-            o -= e - j
-            k += 1
-        j += o
-        acc, row = np.zeros(F, np.float32), v
-        for _ in range(start, end):
-            if j == e:  # next_segment
-                while True:
-                    k += 1
-                    if k == K:  # empty rows: 4 steps, then a search
-                        k, v = 0, v + 1
-                        for _ in range(4):
-                            if prefix[v + 1] != prefix[v]:
-                                break
-                            v += 1
-                        if prefix[v + 1] == prefix[v]:
-                            v = int(np.searchsorted(prefix[:n_rows],
-                                                    prefix[v], "right")) - 1
-                    j, e = segment(v, k)
-                    if j != e:
-                        break
+        slots = _scan_slots(bounds, offs2d, prefix, K, lanes, start)
+        acc, row = np.zeros(F, np.float32), None
+        for _, (v, k, j) in zip(range(start, end), slots):
+            if row is None:
+                row = v
             if v != row:
                 flush(row, acc, start, stop, walker)
                 row, acc = v, np.zeros(F, np.float32)
             acc = acc + message(k, j)
-            j += 1
         flush(row, acc, start, stop, walker)
 
     groups = 32 // fix_lanes  # the fix-up warp's lane groups
@@ -460,6 +509,122 @@ def test_indexed_kernel_walk_matches_scheduled_bitwise(layouts, name, F,
     assert torch.equal(got, want)
 
 
+# bands at the edges of a walker's windows of 8 and of 32 bands
+EDGE_BANDS = (7, 8, 15, 16, 31, 32, 63, 64, 127, 128)
+EDGE_ROWS = 4  # band_rows of the window-edge layouts' tables
+
+
+def _window_edge_layout(K, hub=40, seed=0):
+    """A layout of K bands over 3 tiles (384 rows) whose slots lie only in
+    bands at window edges (7/8, 15/16, 31/32, 63/64, 127/128) and in band
+    K-1: rows with a few such segments; rows whose only segment is in band
+    K-1; rows at r = 127, whose segments end at ``bounds``; a hub with
+    ``hub`` slots in each such band, so that chunks start inside its later
+    windows; and runs of empty rows (stepped over, then searched).  Slot j
+    of band k reads row ``k EDGE_ROWS + ids[k][j]`` of a table.  Returns
+    ``(bounds, offs2d, ids)``, int32, the id streams padded to 8 slots."""
+    rng = np.random.RandomState(seed + K)
+    n_tiles, n_rows = 3, 384
+    edge = [b for b in EDGE_BANDS if b < K - 1] + [K - 1]
+    counts = np.zeros((n_rows, K), np.int64)
+    for v in range(0, n_rows, 3):
+        bands = rng.choice(edge, size=min(len(edge), rng.randint(1, 4)),
+                           replace=False)
+        counts[v, bands] = rng.randint(1, 4, len(bands))
+    counts[1::7] = 0
+    counts[1::7, K - 1] = rng.randint(1, 3, len(counts[1::7]))
+    for v in (127, 255, 383):  # r = 127
+        counts[v, edge] = rng.randint(0, 3, len(edge))
+        counts[v, K - 1] = 1
+    counts[200:240] = 0
+    counts[130, edge] = hub
+    starts = np.cumsum(counts, axis=0) - counts
+    offs2d = starts.reshape(n_tiles, 128, K).transpose(0, 2, 1)
+    lens = counts.sum(axis=0)
+    bounds = np.concatenate([offs2d[:, :, 0].T, lens[:, None]], axis=1)
+    ids = [np.zeros(max(8, -(-n // 8) * 8), np.int32) for n in lens]
+    for i, n in zip(ids, lens):
+        i[:n] = rng.randint(0, EDGE_ROWS, n)
+    return (torch.from_numpy(bounds.astype(np.int32)),
+            torch.from_numpy(np.ascontiguousarray(offs2d).astype(np.int32)),
+            [torch.from_numpy(i) for i in ids])
+
+
+def _window_edge_inputs(K, F, dtype, hub=40, device="cpu"):
+    """:func:`_window_edge_layout`'s arrays with a table ``[K EDGE_ROWS,
+    F]`` of ``dtype`` and per-slot weights, on ``device``."""
+    bounds, offs2d, ids = _window_edge_layout(K, hub)
+    rng = np.random.RandomState(K + F)
+    x = torch.from_numpy(rng.rand(K * EDGE_ROWS, F).astype(np.float32)
+                         - 0.5).to(dtype)
+    w = [torch.from_numpy(rng.uniform(-1, 1, len(i)).astype(np.float32))
+         for i in ids]
+    return [a.to(device) for a in (bounds, offs2d, x)], dict(
+        ids=[i.to(device) for i in ids], weights=[v.to(device) for v in w],
+        band_rows=EDGE_ROWS, edge_chunk=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [11, 42, 150, 513])
+@pytest.mark.parametrize("lanes", [8, 32])
+def test_scanned_walk_matches_scheduled_bitwise(lanes, K, dtype):
+    """The walker that scans a row's bands a window of ``lanes`` at a time
+    visits the slots of the virtual order in order from any start (every
+    chunk's start, inside the hub's later windows too), and its walk gives
+    the scheduled emulation's bits, on layouts whose non-empty bands sit at
+    window edges and in band K-1, with rows at r = 127."""
+    (bounds, offs2d, x), kw = _window_edge_inputs(K, 8, dtype)
+    prefix = row_prefix(bounds, offs2d)
+    counts = (torch.cat([offs2d[:, :, 1:], bounds.t()[1:, :, None]], 2)
+              - offs2d).permute(0, 2, 1).reshape(-1, K).numpy()
+    order = [(v, k, int(offs2d[v // 128, k, v % 128]) + j)
+             for v, k in zip(*np.nonzero(counts))
+             for j in range(counts[v, k])]
+    for start in range(0, len(order), 5):
+        slots = _scan_slots(bounds.numpy(), offs2d.numpy(),
+                            prefix.numpy().astype(np.int64), K, lanes, start)
+        want = order[start:start + 5]
+        assert [s for _, s in zip(want, slots)] == want
+    fix_lanes = k2.kernel_plan(8, x.element_size(), k2._vector_ok([x]))[2]
+    for chunk in (5, 64):
+        want = k2.banded_segment_sum_scheduled_plain(
+            bounds, offs2d, x, row_prefix=prefix, chunk=chunk, **kw)
+        got = _walk_like_the_kernel(
+            bounds, offs2d, x, prefix, chunk, fix_lanes, kw["weights"],
+            ids=kw["ids"], band_rows=EDGE_ROWS, lanes=lanes)
+        assert torch.equal(got, want), chunk
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernel 2 runs only on the card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [32, 100, 256])
+@pytest.mark.parametrize("K", [11, 42, 150, 513])
+def test_scanned_walk_on_card(card, K, F, dtype):
+    """Kernel 2's indexed, weighted launch on the window-edge layouts (a
+    hub of 400 slots a band, so that many walkers start inside it) is
+    bitwise its scheduled emulation, at F = 32 (walkers of 8 lanes in
+    float32, 4 in bf16), 100 and 256 (two column blocks in float32); the
+    launch counts as one that scans."""
+    (bounds, offs2d, x), kw = _window_edge_inputs(K, F, dtype, hub=400,
+                                                  device=card)
+    prefix = row_prefix(bounds, offs2d)
+    before = (k2.launches, k2.scanned_launches)
+    got = k2.banded_segment_sum(bounds, offs2d, x, row_prefix=prefix, **kw)
+    assert (k2.launches - before[0], k2.scanned_launches - before[1]) == (
+        1, 1)
+    want = k2.banded_segment_sum_scheduled_plain(bounds, offs2d, x,
+                                                 row_prefix=prefix, **kw)
+    assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
 def test_indexed_inputs_checked(layouts):
     lay = layouts["rmat_K3"]
     args = _kernel_args(lay)
@@ -511,6 +676,12 @@ def test_schedule_shapes(layouts):
 def test_scheduled_matches_pallas(layouts):
     """The emulation against the TPU twin in interpret mode (two bands of
     128 rows)."""
+    import jax.numpy as jnp
+
+    from mini_tpu.ops.pallas.spmm_banded import (
+        banded_segment_sum as jax_banded_segment_sum,
+    )
+
     hg = erdos_renyi(200, 1200, seed=3, undirected=True, weighted=True)
     lay = _pull_layout(hg, 128)
     assert lay.K == 2
@@ -769,7 +940,7 @@ def fake_sum_launch(msg_ptrs, K, bounds_p, offs2d_p, prefix_p, out_p,
     if table_p is None:
         msgs = [stream_of(msg_ptrs[k], real[k], F) for k in range(K)]
         got = _walk_like_the_kernel(bounds, offs2d, msgs, prefix, chunk,
-                                    fix_lanes, weights, heads)
+                                    fix_lanes, weights, heads, lanes=lanes)
     else:
         ids = [torch.from_numpy(mem(msg_ptrs[k], real[k], ctypes.c_int32)
                                 .copy()) for k in range(K)]
@@ -778,7 +949,7 @@ def fake_sum_launch(msg_ptrs, K, bounds_p, offs2d_p, prefix_p, out_p,
         got = _walk_like_the_kernel(bounds, offs2d,
                                     stream_of(table_p, n_src, F), prefix,
                                     chunk, fix_lanes, weights, heads, ids,
-                                    band_rows)
+                                    band_rows, lanes)
     out = mem(out_p, n_tiles * 128 * F, ctypes.c_float)
     out[:] = got.reshape(-1).numpy()
     return 0
@@ -833,8 +1004,8 @@ def test_indexed_launch_arguments(monkeypatch, layouts, F, heads, dtype):
     the K id streams reach the C entry (emulated on CPU memory) in place
     of streams, with the stream form's plan for the same rows; the result
     is the stream form's scheduled emulation on the gathered streams, bit
-    for bit; ``launches`` and ``indexed_launches`` move (and
-    ``weighted_launches`` with weights)."""
+    for bit; ``launches``, ``indexed_launches`` and ``scanned_launches``
+    move (and ``weighted_launches`` with weights)."""
     from mini_tpu_torch.ops.kernels import _build
     from test_torch_gather import on_card
 
@@ -848,13 +1019,16 @@ def test_indexed_launch_arguments(monkeypatch, layouts, F, heads, dtype):
     prefix = row_prefix(*args)
     x = _table(lay, F, dtype)
     w = None if heads is None else _weights(lay, heads)
-    before = (k2.launches, k2.weighted_launches, k2.indexed_launches)
+    before = (k2.launches, k2.weighted_launches, k2.indexed_launches,
+              k2.scanned_launches)
     got = k2.banded_segment_sum(
         *[on_card(a) for a in args], on_card(x), row_prefix=on_card(prefix),
         weights=None if w is None else [on_card(v) for v in w],
         ids=[on_card(i) for i in _ids(lay)], band_rows=lay.band_rows)
-    assert (k2.launches, k2.weighted_launches, k2.indexed_launches) == (
-        before[0] + 1, before[1] + (w is not None), before[2] + 1)
+    assert (k2.launches, k2.weighted_launches, k2.indexed_launches,
+            k2.scanned_launches) == (
+        before[0] + 1, before[1] + (w is not None), before[2] + 1,
+        before[3] + 1)
     streams = _gather_then(lay, x)
     assert torch.equal(got, k2.banded_segment_sum_scheduled_plain(
         *args, streams, row_prefix=prefix, weights=w))
