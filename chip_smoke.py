@@ -8,6 +8,8 @@
     python3 chip_smoke.py --tp-profile # the GCN steps over the meshes
     python3 chip_smoke.py --wide [DIR] # kernel 2's band limits alone, and
                                        # its JSON line at ogbn-products' size
+    python3 chip_smoke.py --bipartite  # kernel 2 on rectangular layouts
+                                       # at ogbn-mag's shapes alone
 
 Phases; any failure ends with a traceback and a non-zero exit:
 
@@ -37,7 +39,11 @@ Phases; any failure ends with a traceback and a non-zero exit:
    host's enqueue where it is the longer) and on the device alone
    (``graph_ms``: a CUDA graph of captured launches), beside its plain version, its bound (``bound``)
    and, where one PyTorch call computes the same function, that call.
-   The launch path's host cost per call is printed too;
+   The launch path's host cost per call is printed too; last, kernel 2 on
+   a relation graph's rectangular layouts at ogbn-mag's shapes (author
+   -> paper at F=128, K=35; field_of_study -> paper at F=64; pull and
+   push; ``--bipartite`` alone): within SUM_TOL of a float64 sum, two
+   launches bitwise, each counted bipartite, timed;
 3. BFS from the max-degree hub of ``rmat(16, 16, seed=0, undirected,
    weighted)`` and from 3 more reached sources, in three schedules (JAX's
    defaults: a sparse tier, no chain at mean degree 32; dense rounds only;
@@ -1082,6 +1088,90 @@ def wide_bands_at_products_shape(device) -> dict:
     found["sage_step"] = sage_steps_at_products_shape(g, norm, device)
     del g, norm
     torch.cuda.empty_cache()
+    return found
+
+
+# ogbn-mag's relations that a bipartite launch is checked on: (name, n_src,
+# n_dst, edges, F), the first layer's width for author -> paper (writes)
+# and the second's for field_of_study -> paper (has_topic reversed)
+MAG_RELATIONS = (("author->paper", 1_134_649, 736_389, 7_145_660, 128),
+                 ("field_of_study->paper", 59_965, 736_389, 7_505_078, 64))
+
+
+def bipartite_at_mag_shapes(device) -> list:
+    """Kernel 2 on a relation graph's rectangular layouts at ogbn-mag's
+    shapes (``MAG_RELATIONS``; sources skewed to low ids, so some span
+    many walkers, destinations uniform), the mean's weights of
+    ``sage_normalize``, float32, pull (author -> paper: K = 35 bands over
+    the authors at F = 128; field_of_study -> paper: K = 2) and push (K =
+    23 bands over the papers): each launch within SUM_TOL of a float64 sum
+    band by band, two launches bitwise equal, each counted in
+    ``bipartite_launches``; then one launch timed against the bytes
+    ``rgcn_segment_sum_roofline`` counts for it, ``4 m F + 8 m + 4 rows
+    F``.  Returns each launch's numbers."""
+    import torch
+
+    from mini_tpu_torch.graph import GraphSlice, banded, from_edges_bipartite
+    from mini_tpu_torch.models.sage import sage_normalize
+    from mini_tpu_torch.ops.kernels import spmm_banded as k2
+
+    rng = np.random.RandomState(0)
+    found = []
+    for name, n_src, n_dst, m, F in MAG_RELATIONS:
+        srcs = (n_src * rng.rand(m) ** 2).astype(np.int64)
+        dsts = rng.randint(0, n_dst, m)
+        g = GraphSlice.from_host(
+            from_edges_bipartite(srcs, dsts, n_src, n_dst), device=device)
+        del srcs, dsts
+        norm = sage_normalize(g, (F,))
+        for direction in ("pull", "push"):
+            lay = banded.layout_for(g, direction, F)
+            dev = lay.dev(device)
+            w = norm.bands_for(g, F)[direction == "push"]
+            x = torch.rand(lay.table_rows, F, device=device) - 0.5
+
+            def launch(x=x, lay=lay, dev=dev, w=w):
+                return k2.banded_segment_sum(
+                    dev["bounds"], dev["offs2d"], x,
+                    row_prefix=dev["row_prefix"], weights=w,
+                    edge_chunk=lay.edge_chunk, ids=dev["ids"],
+                    band_rows=lay.band_rows)
+
+            before = k2.bipartite_launches
+            got, again = launch(), launch()
+            assert k2.bipartite_launches - before == 2, name
+            assert got.shape == (lay.n_pad, F), (name, tuple(got.shape))
+            want = torch.zeros(lay.n_pad, F, dtype=torch.float64,
+                               device=device)
+            for k in range(lay.K):
+                seg = k2._segment_ids(dev["bounds"], dev["offs2d"], k)
+                for lo in range(0, seg.numel(), 1 << 22):
+                    hi = min(lo + (1 << 22), seg.numel())
+                    rows = x[k * lay.band_rows + dev["ids"][k][lo:hi].long()]
+                    want.index_add_(0, seg[lo:hi],
+                                    (rows * w[k][lo:hi, None]).double())
+                    del rows
+            torch.cuda.synchronize(device)
+            err = float((got - want).abs().max())
+            limit = SUM_TOL * float(want.abs().max())
+            assert err <= limit, (name, direction, err, limit)
+            assert torch.equal(got, again), (name, direction, "two launches")
+            del got, again, want
+            ms = cuda_ms(launch, device, windows=3, min_calls=5)
+            rows = n_dst if direction == "pull" else n_src
+            nbytes = 4 * m * F + 8 * m + 4 * rows * F
+            bnd = bound(nbytes)
+            log(f"# kernel 2 bipartite {name} {direction} K={lay.K} F={F} "
+                f"({lay.table_rows} table rows, {lay.n_pad} out) weighted "
+                f"(the mean): max err {err:.3g} (limit {limit:.3g}), two "
+                f"launches bitwise; {ms:.3f} ms a launch, {pct(ms, bnd)} "
+                f"({nbytes / 1e9:.2f} GB, {bnd['bound_ms']:.3f} ms)")
+            found.append(dict(relation=name, direction=direction, K=lay.K,
+                              F=F, max_abs_err=err, limit=limit, ms=ms,
+                              bound_ms=bnd["bound_ms"]))
+        banded.forget_host_graph(g.fingerprint)
+        del g, norm
+        torch.cuda.empty_cache()
     return found
 
 
@@ -3818,6 +3908,10 @@ def main(argv) -> None:
     if argv == ["--parallel"]:  # phase 21 alone, no result
         drive("parallel", phase_parallel, hg, device)
         return
+    if argv == ["--bipartite"]:  # kernel 2 on rectangular layouts alone
+        print(json.dumps({"kernel2_mag_shapes":
+                          bipartite_at_mag_shapes(device)}), flush=True)
+        return
     if argv[:1] == ["--wide"]:  # kernel 2's band limits alone
         narrow_bands_unchanged(device, argv[1] if len(argv) > 1 else None)
         print(json.dumps({"kernel2_products_shape":
@@ -3836,6 +3930,7 @@ def main(argv) -> None:
     log(f"# rmat{MEMORY_SCALE}: n={hg_big.n} m={hg_big.m} (host graph "
         f"{time.perf_counter() - t0:.2f} s)")
     stats = phase_kernels(g, hg_big, device)
+    bipartite_at_mag_shapes(device)
     if argv == ["--kernels"]:  # phases 1 and 2 alone, no result
         return
 

@@ -23,6 +23,11 @@ int32 ``min``), in place of gunrock's benign-race write
 with ``mini_tpu``'s bucket rule kept in float32 on the device and its
 compact-chained reentry rounds (``ops/sparse.relax_and_chain``), so the
 round counters equal ``mini_tpu``'s.
+
+While a profiler runs, a search is the span ``sssp.query``; inside it
+each round's read is ``loop.read``, its launches ``sssp.round.<kind>``
+(``dense``, ``sparse`` or ``chained``, as the counters count them) and
+the predecessor pass ``sssp.preds``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from mini_tpu_torch.ops.sparse import (
     relax,
     relax_and_chain,
 )
+from mini_tpu_torch.utils.profiling import annotate, scope
 
 _INT_MAX = 2**31 - 1
 # mean out-degree below which ``variant="auto"`` picks delta-stepping
@@ -89,6 +95,7 @@ def _dense_relax(g: GraphSlice, dist: torch.Tensor) -> torch.Tensor:
         g, torch.where(g.edge_mask_csc, cand, float("inf")), "min")
 
 
+@annotate("sssp.query")
 def _bellman(g, src, max_iter, capv, cape, with_preds):
     dist, frontier = _start(g, src)
     tiers = default_tiers(g, capv, cape) if cape > 1 else []
@@ -101,20 +108,23 @@ def _bellman(g, src, max_iter, capv, cape, with_preds):
             break
         tier = _tier(tiers, fe, fl)
         if tier is None:
-            best = _dense_relax(g, dist)
-            frontier = best < dist
-            dist = torch.minimum(dist, best)
+            with scope("sssp.round.dense"):
+                best = _dense_relax(g, dist)
+                frontier = best < dist
+                dist = torch.minimum(dist, best)
         else:
-            idx, cnt, v_ovf = compact_frontier(frontier, tier[0])
-            d2, e_ovf = relax(g, dist, idx, cnt, tier[1])
-            frontier = d2 < dist
-            dist = d2
-            ovf = ovf | v_ovf | e_ovf
+            with scope("sssp.round.sparse"):
+                idx, cnt, v_ovf = compact_frontier(frontier, tier[0])
+                d2, e_ovf = relax(g, dist, idx, cnt, tier[1])
+                frontier = d2 < dist
+                dist = d2
+                ovf = ovf | v_ovf | e_ovf
             sparses += 1
         it += 1
     return _finish(g, dist, src, it, sparses, ovf, with_preds)
 
 
+@annotate("sssp.query")
 def _delta(g, src, max_iter, capv, cape, delta, with_preds, chain_cap):
     """Delta-stepping: the pending set (improved, not yet relaxed) is worked
     off in buckets ``dist < B``; ``B`` moves to the next pending bucket's
@@ -153,17 +163,19 @@ def _delta(g, src, max_iter, capv, cape, delta, with_preds, chain_cap):
         if not more:
             break
         if chain:
-            d2, sdst, imp_first, cidx, ccnt, cfe, cok, e_ovf = \
-                relax_and_chain(g, dist, g.csr_weights, nidx, ncnt, ccap,
-                                ccap, bound=B)
-            # the expanded actives leave pending, then the improved dsts
-            # (re)enter: an active improved again stays pending
-            ext = torch.cat([pending, pending.new_zeros(1)])
-            ext[torch.where(chain_slots < ncnt, nidx, n_pad).long()] = False
-            ext[torch.where(imp_first, sdst, n_pad).long()] = True
-            pending, dist = ext[:n_pad], d2
-            nidx, ncnt, nok = cidx, ccnt, cok & (cfe <= ccap)
-            ovf = ovf | e_ovf
+            with scope("sssp.round.chained"):
+                d2, sdst, imp_first, cidx, ccnt, cfe, cok, e_ovf = \
+                    relax_and_chain(g, dist, g.csr_weights, nidx, ncnt,
+                                    ccap, ccap, bound=B)
+                # the expanded actives leave pending, then the improved
+                # dsts (re)enter: an active improved again stays pending
+                ext = torch.cat([pending, pending.new_zeros(1)])
+                ext[torch.where(chain_slots < ncnt, nidx,
+                                n_pad).long()] = False
+                ext[torch.where(imp_first, sdst, n_pad).long()] = True
+                pending, dist = ext[:n_pad], d2
+                nidx, ncnt, nok = cidx, ccnt, cok & (cfe <= ccap)
+                ovf = ovf | e_ovf
             sparses += 1
             chained += 1
         else:
@@ -171,18 +183,20 @@ def _delta(g, src, max_iter, capv, cape, delta, with_preds, chain_cap):
             nidx, ncnt, nok = no_chain
             tier = _tier(tiers, fe, fl)
             if tier is None:
-                d2 = torch.minimum(
-                    dist, _dense_relax(g, torch.where(active, dist, inf)))
+                with scope("sssp.round.dense"):
+                    d2 = torch.minimum(
+                        dist, _dense_relax(g, torch.where(active, dist, inf)))
             else:
-                idx, cnt, v_ovf = compact_frontier(active, tier[0])
-                if ccap == 0:
-                    d2, e_ovf = relax(g, dist, idx, cnt, tier[1])
-                else:
-                    d2, _, _, nidx, ncnt, cfe, cok, e_ovf = relax_and_chain(
-                        g, dist, g.csr_weights, idx, cnt, tier[1], ccap,
-                        bound=B)
-                    nok = cok & (cfe <= ccap)
-                ovf = ovf | v_ovf | e_ovf
+                with scope("sssp.round.sparse"):
+                    idx, cnt, v_ovf = compact_frontier(active, tier[0])
+                    if ccap == 0:
+                        d2, e_ovf = relax(g, dist, idx, cnt, tier[1])
+                    else:
+                        d2, _, _, nidx, ncnt, cfe, cok, e_ovf = \
+                            relax_and_chain(g, dist, g.csr_weights, idx, cnt,
+                                            tier[1], ccap, bound=B)
+                        nok = cok & (cfe <= ccap)
+                    ovf = ovf | v_ovf | e_ovf
                 sparses += 1
             # the bucket's settled vertices leave pending; improvements
             # (re)enter, into this bucket or a later one
@@ -196,8 +210,15 @@ def _finish(g, dist, src, it, sparses, ovf, with_preds, chained=0):
     if not with_preds:  # distances only: no post-pass
         preds = torch.full((g.n_pad,), -1, dtype=torch.int32, device=g.device)
         return SsspResult(dist, preds, it, sparses, bool(ovf), chained)
-    # pred[v] = min{u : dist[u] + w == dist[v]}, the float32 sum recomputed
-    # as the relax computed it
+    return SsspResult(dist, _preds(g, dist, src), it, sparses, bool(ovf),
+                      chained)
+
+
+@annotate("sssp.preds")
+def _preds(g, dist, src):
+    """int32 ``[n_pad]``: ``pred[v] = min{u : dist[u] + w == dist[v]}``,
+    the float32 sum recomputed as the relax computed it; -1 for ``src``
+    and the unreached."""
     d_src = torch.index_select(dist, 0, g.csc_srcs)
     d_dst = torch.index_select(dist, 0, g.csc_dsts)
     ok = ((d_src + g.csc_weights == d_dst) & torch.isfinite(d_dst)
@@ -207,7 +228,7 @@ def _finish(g, dist, src, it, sparses, ovf, with_preds, chained=0):
     preds = torch.where(torch.isfinite(dist) & (pred_min != _INT_MAX),
                         pred_min, -1).to(torch.int32)
     preds[src] = -1
-    return SsspResult(dist, preds, it, sparses, bool(ovf), chained)
+    return preds
 
 
 def _default_delta(g: GraphSlice) -> float:

@@ -3,7 +3,10 @@
 Vertices are cut into K bands of ``band_rows`` rows.  Edges, in the
 direction's segment order (CSC for pull: sorted by dst; CSR for push:
 sorted by src), are regrouped by the band of the vertex whose features
-they gather, keeping the segment order inside each band.  The
+they gather, keeping the segment order inside each band.  On a relation
+graph (``graph/csr.py``) the gathered side is another vertex set than
+the rows': a pull layout has the destinations' rows and the sources'
+bands, a push layout the other way round.  The
 ``banded_segment_sum`` kernel (ops/kernels/spmm_banded.py) then reads each
 band's messages from one slice of ``x`` by the band's ids and folds the K
 segment-sorted message streams into one output through per-band offset
@@ -46,7 +49,7 @@ class BandedLayout:
 
     direction: str  # "pull" | "push"
     band_rows: int
-    n_pad: int
+    n_pad: int  # rows (segments) of the output
     m_pad: int  # original (unbanded) padded edge count
     # per band (lists of length K):
     ids: list  # np.int32[mk_pad] — band-local gather indices
@@ -63,6 +66,9 @@ class BandedLayout:
     offsets: Optional[list] = None  # np.int32[n_pad+1] per band
     valid: Optional[list] = None  # np.bool_[mk_pad] — real (non-ghost) edges
     edge_chunk: int = EDGE_CHUNK  # per-band stream padding multiple
+    # rows of the table the ids index, the gathered side: K bands of
+    # band_rows cover them (n_pad on a square graph)
+    table_rows: int = 0
 
     # device-array cache, keyed by device
     _dev: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -194,9 +200,13 @@ def build_banded_layout(
     band_rows: int,
     direction: str,
     edge_chunk: int = EDGE_CHUNK,
+    table_rows: Optional[int] = None,
 ) -> BandedLayout:
     """Group edges by gather-id band, preserving segment order within each
     band.  Pad/ghost edges keep weight 0 and id 0 so they are no-ops.
+    ``table_rows`` counts the gathered side's padded rows, which the
+    bands cut, where they are another vertex set than the ``n_pad``
+    segments (a relation graph); None: ``n_pad``, a square graph's.
 
     One stable sort by band (a radix sort of 16-bit keys) groups every
     band at once, and a count of each band's run of the sorted segments
@@ -206,9 +216,10 @@ def build_banded_layout(
     no host array of K x n_pad but the int32 offsets the layout keeps."""
     n_pad = offsets.shape[0] - 1
     m_pad = gather_ids.shape[0]
-    assert n_pad % ROW_TILE == 0
-    band_rows = min(_round_up(band_rows, ROW_TILE), n_pad)
-    K = (n_pad + band_rows - 1) // band_rows
+    table_rows = n_pad if table_rows is None else int(table_rows)
+    assert n_pad % ROW_TILE == 0 and table_rows % ROW_TILE == 0
+    band_rows = min(_round_up(band_rows, ROW_TILE), table_rows)
+    K = (table_rows + band_rows - 1) // band_rows
 
     offsets = offsets.astype(np.int64)
     gid = gather_ids.astype(np.int64)
@@ -281,16 +292,20 @@ def build_banded_layout(
         offsets=band_offsets,
         valid=band_valid,
         edge_chunk=edge_chunk,
+        table_rows=table_rows,
     )
 
 
 # ---------------------------------------------------------------------------
 # Per-graph caches, keyed by the GraphSlice fingerprint.  Both are LRU-bounded
 # so long-lived processes loading many graphs don't grow host memory without
-# bound (each layout holds ~3x the graph's edge bytes).
+# bound (each layout holds ~3x the graph's edge bytes).  The bounds hold one
+# typed model's relations with room to spare: ogbn-mag's R-GCN has 7
+# relation graphs and 14 layouts (pull and push at one band height), and an
+# eviction would rebuild a layout inside a training step.
 
-MAX_HOST_GRAPHS = 8
-MAX_LAYOUTS = 16
+MAX_HOST_GRAPHS = 16
+MAX_LAYOUTS = 32
 
 _HOST_CACHE: OrderedDict = OrderedDict()  # fingerprint -> host arrays
 _LAYOUT_CACHE: OrderedDict = OrderedDict()  # (fp, dir, rows, chunk) -> layout
@@ -384,14 +399,20 @@ def get_layout(
 
     ``row_bytes`` = bytes per gathered feature row; the band height is
     ``FAST_TABLE_BYTES // row_bytes`` rows, rounded up to ``ROW_TILE``.
+    A relation graph's pull layout has its destinations' rows and bands
+    over its sources; its push layout the other way round.
     """
     fp = getattr(g, "fingerprint", None)
     if fp is None or fp not in _HOST_CACHE:
         return None
-    if g.n_pad % ROW_TILE != 0:  # oddly padded slices: no banded layout
-        return None
+    if direction not in ("pull", "push"):
+        raise ValueError(f"unknown direction {direction!r}")
+    table, rows = ((g.n_src_pad, g.n_dst_pad) if direction == "pull"
+                   else (g.n_dst_pad, g.n_src_pad))
+    if table % ROW_TILE or rows % ROW_TILE:
+        return None  # oddly padded slices: no banded layout
     band_rows = max(ROW_TILE, FAST_TABLE_BYTES // max(row_bytes, 1))
-    band_rows = min(_round_up(band_rows, ROW_TILE), g.n_pad)
+    band_rows = min(_round_up(band_rows, ROW_TILE), table)
     key = (fp, direction, band_rows, edge_chunk)
     if key not in _LAYOUT_CACHE:
         h = _HOST_CACHE[fp]
@@ -399,14 +420,14 @@ def get_layout(
             _LAYOUT_CACHE[key] = build_banded_layout(
                 h["col_offsets"], h["csc_srcs"], h["csc_weights"],
                 h["edge_mask"], band_rows, "pull", edge_chunk=edge_chunk,
+                table_rows=table,
             )
-        elif direction == "push":
+        else:
             _LAYOUT_CACHE[key] = build_banded_layout(
                 h["row_offsets"], h["csr_dsts"], h["csr_weights"],
                 h["edge_mask"], band_rows, "push", edge_chunk=edge_chunk,
+                table_rows=table,
             )
-        else:
-            raise ValueError(f"unknown direction {direction!r}")
     _lru_touch(_LAYOUT_CACHE, key, MAX_LAYOUTS)
     return _LAYOUT_CACHE[key]
 

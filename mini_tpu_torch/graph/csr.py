@@ -11,6 +11,12 @@ holds the same padded CSR + CSC arrays as torch tensors on one device:
 
 Ghost vertices have zero degree.  Operators mask every per-edge value with
 ``edge_mask`` (CSR order) / ``edge_mask_csc`` (CSC order).
+
+A relation graph (:func:`from_edges_bipartite`) has its sources and its
+destinations in two vertex sets, of ``n_src`` and ``n_dst`` vertices: its
+CSR rows are the sources', its CSC rows the destinations', each side
+padded as above with its own ghost.  A :class:`TypedGraph` holds the
+vertex counts of its types and its relations between them.
 """
 
 from __future__ import annotations
@@ -52,6 +58,10 @@ class HostGraph:
     csc_dsts: np.ndarray  # int32[m]
     csc_weights: np.ndarray  # float32[m]
     csc_eids: np.ndarray  # int32[m] -> CSR edge id
+    # the destinations' count where they are another vertex set than the
+    # sources (a relation graph: col_offsets has n_dst + 1 entries and n
+    # counts the sources); None: the square graph's n
+    n_dst: Optional[int] = None
 
     @property
     def out_degrees(self) -> np.ndarray:
@@ -105,6 +115,32 @@ def from_edges(
         if hg is not None:
             return hg
     return from_edges_numpy(srcs, dsts, weights, n, directed)
+
+
+def from_edges_bipartite(
+    srcs: np.ndarray,
+    dsts: np.ndarray,
+    n_src: int,
+    n_dst: int,
+    weights: Optional[np.ndarray] = None,
+) -> HostGraph:
+    """The relation graph of directed edges ``srcs -> dsts`` from a set of
+    ``n_src`` vertices into one of ``n_dst``: :func:`from_edges`' arrays
+    over ``max(n_src, n_dst)`` ids, with the CSR offsets cut to the
+    sources' ``n_src + 1`` and the CSC offsets to the destinations'
+    ``n_dst + 1`` (past its own side's ids an offset is ``m``).
+    Duplicates are kept."""
+    srcs = np.asarray(srcs, dtype=np.int64)
+    dsts = np.asarray(dsts, dtype=np.int64)
+    n_src, n_dst = int(n_src), int(n_dst)
+    if srcs.size and not (0 <= srcs.min() and srcs.max() < n_src):
+        raise ValueError(f"a source id lies outside [0, {n_src})")
+    if dsts.size and not (0 <= dsts.min() and dsts.max() < n_dst):
+        raise ValueError(f"a destination id lies outside [0, {n_dst})")
+    hg = from_edges(srcs, dsts, weights, num_nodes=max(n_src, n_dst))
+    return dataclasses.replace(
+        hg, n=n_src, n_dst=n_dst, row_offsets=hg.row_offsets[: n_src + 1],
+        col_offsets=hg.col_offsets[: n_dst + 1])
 
 
 def from_edges_numpy(
@@ -163,6 +199,13 @@ class GraphSlice:
     On a GPU the CSR <-> CSC order switch is a gather: ``csc_eids`` (CSR
     position of each CSC edge) and ``csr_to_csc_rank`` (its inverse) are
     the indices.
+
+    ``n_src``/``n_src_pad`` count the CSR rows (the sources) and
+    ``n_dst``/``n_dst_pad`` the CSC rows (the destinations).  On a square
+    graph both are ``n``/``n_pad``; on a relation graph whose two sides
+    differ ``n`` and ``n_pad`` are None, since the square graph's
+    operators do not apply to it: the SpMM and the banded layouts take
+    each side's count.
     """
 
     _DATA_FIELDS = (
@@ -191,12 +234,20 @@ class GraphSlice:
         "max_in_degree",
         "fingerprint",  # stable id of the host graph; keys the banded-
         # layout cache (graph/banded.py)
+        "n_src",
+        "n_dst",
+        "n_src_pad",
+        "n_dst_pad",
     )
+    _SIDE_OF = {"n_src": "n", "n_dst": "n", "n_src_pad": "n_pad",
+                "n_dst_pad": "n_pad"}
 
     def __init__(self, **kw):
         for f in self._DATA_FIELDS + self._META_FIELDS:
             if f == "fingerprint":
                 setattr(self, f, kw.get(f))
+            elif f in self._SIDE_OF:  # a square graph's sides: n, n_pad
+                setattr(self, f, kw.get(f, kw[self._SIDE_OF[f]]))
             else:
                 setattr(self, f, kw[f])
 
@@ -208,12 +259,18 @@ class GraphSlice:
         device=None,
     ) -> "GraphSlice":
         """The padded device graph of ``hg`` on ``device`` (``None``: the
-        card; ``"cpu"`` for the plain torch versions)."""
+        card; ``"cpu"`` for the plain torch versions).  A relation graph
+        (``hg.n_dst`` set) pads each side with its own ghost, and its pad
+        edges join the two ghosts."""
         device = resolve_device(device)
-        n, m = hg.n, hg.m
-        n_pad = _round_up(n + 1, n_multiple)
+        n_src, m = hg.n, hg.m
+        # a host graph of another make (the JAX package's) is square
+        bipartite = getattr(hg, "n_dst", None) is not None
+        n_dst = hg.n_dst if bipartite else n_src
+        src_pad = _round_up(n_src + 1, n_multiple)
+        dst_pad = _round_up(n_dst + 1, n_multiple)
         m_pad = _round_up(max(m, 1), m_multiple)
-        ghost = n_pad - 1
+        src_ghost, dst_ghost = src_pad - 1, dst_pad - 1
         pad_e = m_pad - m
 
         def pad_edges(a, fill):
@@ -221,7 +278,7 @@ class GraphSlice:
                 [a, np.full(pad_e, fill, dtype=a.dtype)]
             ) if pad_e else a
 
-        def pad_offsets(off):
+        def pad_offsets(off, n, n_pad):
             # Real vertices keep their offsets; ghost vertices [n, ghost)
             # have zero degree (offset m); the last ghost absorbs pad edges.
             out = np.full(n_pad + 1, m, dtype=np.int32)
@@ -237,20 +294,20 @@ class GraphSlice:
 
         arrays = dict(
             csr_to_csc_rank=csr_to_csc,
-            row_offsets=pad_offsets(hg.row_offsets),
-            csr_dsts=pad_edges(hg.csr_dsts, ghost),
-            csr_srcs=pad_edges(hg.csr_srcs, ghost),
+            row_offsets=pad_offsets(hg.row_offsets, n_src, src_pad),
+            csr_dsts=pad_edges(hg.csr_dsts, dst_ghost),
+            csr_srcs=pad_edges(hg.csr_srcs, src_ghost),
             csr_weights=pad_edges(hg.csr_weights, 0.0),
-            col_offsets=pad_offsets(hg.col_offsets),
-            csc_srcs=pad_edges(hg.csc_srcs, ghost),
-            csc_dsts=pad_edges(hg.csc_dsts, ghost),
+            col_offsets=pad_offsets(hg.col_offsets, n_dst, dst_pad),
+            csc_srcs=pad_edges(hg.csc_srcs, src_ghost),
+            csc_dsts=pad_edges(hg.csc_dsts, dst_ghost),
             csc_weights=pad_edges(hg.csc_weights, 0.0),
             csc_eids=pad_edges(hg.csc_eids, m_pad - 1 if pad_e else 0),
             out_degrees=np.concatenate(
-                [hg.out_degrees, np.zeros(n_pad - n, np.int32)]
+                [hg.out_degrees, np.zeros(src_pad - n_src, np.int32)]
             ),
             in_degrees=np.concatenate(
-                [hg.in_degrees, np.zeros(n_pad - n, np.int32)]
+                [hg.in_degrees, np.zeros(dst_pad - n_dst, np.int32)]
             ),
             edge_mask=np.concatenate(
                 [np.ones(m, bool), np.zeros(pad_e, bool)]
@@ -264,8 +321,10 @@ class GraphSlice:
         from mini_tpu_torch.graph import banded as _banded
 
         hsh = hashlib.blake2b(digest_size=16)
-        hsh.update(np.int64(n).tobytes())
+        hsh.update(np.int64(n_src).tobytes())
         hsh.update(np.int64(m).tobytes())
+        if bipartite:  # a square graph's print is unchanged
+            hsh.update(np.int64(n_dst).tobytes())
         hsh.update(arrays["row_offsets"].tobytes())
         hsh.update(arrays["csr_dsts"].tobytes())
         hsh.update(arrays["csr_weights"].tobytes())
@@ -282,13 +341,18 @@ class GraphSlice:
             },
         )
 
+        square = n_src == n_dst
         return GraphSlice(
             fingerprint=fingerprint,
-            n=n,
+            n=n_src if square else None,
             m=m,
-            n_pad=n_pad,
+            n_pad=src_pad if square else None,
             m_pad=m_pad,
             directed=hg.directed,
+            n_src=n_src,
+            n_dst=n_dst,
+            n_src_pad=src_pad,
+            n_dst_pad=dst_pad,
             # the ghost vertex absorbs m_pad - m pad edges, so its segment
             # can exceed the real max degree
             max_out_degree=int(
@@ -308,8 +372,12 @@ class GraphSlice:
         return self.row_offsets.device
 
     def __repr__(self):
+        sides = (f"n={self.n}" if self.n is not None else
+                 f"n_src={self.n_src}, n_dst={self.n_dst}")
+        pads = (f"n_pad={self.n_pad}" if self.n_pad is not None else
+                f"n_src_pad={self.n_src_pad}, n_dst_pad={self.n_dst_pad}")
         return (
-            f"GraphSlice(n={self.n}, m={self.m}, n_pad={self.n_pad}, "
+            f"GraphSlice({sides}, m={self.m}, {pads}, "
             f"m_pad={self.m_pad}, directed={self.directed}, "
             f"device={self.device})"
         )
@@ -333,3 +401,40 @@ def segment_ranks(offsets: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     return torch.arange(
         seg.shape[0], dtype=torch.int32, device=seg.device
     ) - offsets[seg]
+
+
+@dataclasses.dataclass(frozen=True)
+class Relation:
+    """One edge type of a :class:`TypedGraph`: its edges run from vertices
+    of type ``src`` to vertices of type ``dst`` (ids local to each type),
+    held as the relation graph ``graph``."""
+
+    name: str
+    src: str
+    dst: str
+    graph: GraphSlice
+
+
+@dataclasses.dataclass(frozen=True)
+class TypedGraph:
+    """A heterogeneous graph: the vertex count of each type, in order, and
+    its relations, each a relation graph (:func:`from_edges_bipartite`,
+    then :meth:`GraphSlice.from_host`).  A type's vertices carry ids
+    ``0..n-1`` of their own, and every relation pads a type's rows alike
+    (:meth:`n_pad`)."""
+
+    num_nodes: dict  # type -> vertex count
+    relations: tuple  # Relation, in order
+
+    def n_pad(self, node_type: str) -> int:
+        """The padded row count of ``node_type`` in every relation."""
+        for r in self.relations:
+            if r.src == node_type:
+                return r.graph.n_src_pad
+            if r.dst == node_type:
+                return r.graph.n_dst_pad
+        raise KeyError(f"no relation touches type {node_type!r}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.relations[0].graph.device

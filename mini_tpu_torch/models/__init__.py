@@ -28,3 +28,11 @@ from mini_tpu_torch.models.sage import (  # noqa: F401
     sage_loss,
     sage_train_step,
 )
+from mini_tpu_torch.models.rgcn import (  # noqa: F401
+    rgcn_normalize,
+    rgcn_init,
+    rgcn_forward,
+    rgcn_init_opt,
+    rgcn_loss,
+    rgcn_train_step,
+)

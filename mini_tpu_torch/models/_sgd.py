@@ -27,7 +27,9 @@ def sgd_momentum_step(
     ``torch.autograd.grad``, then the momentum update.  Returns
     ``(new_params, new_opt, loss)``; the inputs are left as they were.
     ``reduce_grads`` maps the gradients before the update (the
-    distributed steps sum them over the ranks).  While a profiler runs,
+    distributed steps sum them over the ranks).  A parameter the loss
+    does not reach (an output no loss reads, as R-GCN's last layer has)
+    takes a zero gradient.  While a profiler runs,
     the three phases are the spans ``step.forward``, ``step.backward``
     and ``step.update`` (``reduce_grads`` in the last)."""
     leaves = [{k: v.detach().requires_grad_() for k, v in p.items()}
@@ -36,7 +38,9 @@ def sgd_momentum_step(
         loss = loss_fn(leaves)
     flat = [v for p in leaves for v in p.values()]
     with scope("step.backward"):
-        grads = torch.autograd.grad(loss, flat)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(v) if d is None else d
+                 for v, d in zip(flat, grads)]
     with scope("step.update"):
         if reduce_grads is not None:
             grads = reduce_grads(grads)

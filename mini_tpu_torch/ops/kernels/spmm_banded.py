@@ -73,6 +73,7 @@ weighted_launches = 0  # those of them that scaled by weights
 indexed_launches = 0  # those of them that read rows of a table by ids
 wide_launches = 0  # those of them past the stream form's bands (128)
 scanned_launches = 0  # those whose walker scans a row's bands G at a time
+bipartite_launches = 0  # indexed ones whose table's rows are not the output's
 sddmm_launches = 0  # banded_sddmm
 # the bound C entries and the kernel's band limits, set at the first
 # launch: the stream form's and the SDDMM's, and the indexed form's
@@ -556,12 +557,13 @@ def banded_segment_sum(
                            precision, edge_chunk, row_prefix, weights, ids,
                            band_rows)
     global launches, weighted_launches, indexed_launches, wide_launches
-    global scanned_launches
+    global scanned_launches, bipartite_launches
     launches += 1
     weighted_launches += weights is not None
     indexed_launches += ids is not None
     wide_launches += len(ids if ids is not None else msgs) > _max_bands
     scanned_launches += 1
+    bipartite_launches += ids is not None and msgs.shape[0] != out.shape[0]
     return out
 
 

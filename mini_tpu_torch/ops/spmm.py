@@ -5,6 +5,11 @@ case), the aggregation of GNN message passing and its edge scoring.
     pull:  out[v, :] = sum_{e=(u,v) in E} w[e] * X[u, :]
     push:  out[u, :] = sum_{e=(u,v) in E} w[e] * X[v, :]
 
+On a relation graph (``graph/csr.from_edges_bipartite``) the sources and
+destinations are two vertex sets: a pull takes ``X`` of the sources'
+``n_src_pad`` rows to the destinations' ``n_dst_pad``, a push the other
+way, and the backward of each is the other.
+
 SpMM implementations:
 
 * ``banded`` (the default for a CUDA ``x``; ``pallas`` is an alias): the
@@ -66,7 +71,9 @@ def spmm(
     interpret: bool = False,
     heads: int = 1,
 ) -> torch.Tensor:
-    """Sparse (adjacency) times dense (features): [n_pad, F] -> [n_pad, F].
+    """Sparse (adjacency) times dense (features): [n_pad, F] -> [n_pad, F]
+    (on a relation graph, pull: [n_src_pad, F] -> [n_dst_pad, F]; push:
+    the other way).
 
     ``weights`` overrides the graph's edge weights; it must be in the edge
     order of the chosen direction (CSC for pull, CSR for push).
@@ -124,18 +131,18 @@ def spmm(
     if direction == "pull":
         seg, gather_ids, offsets = g.csc_dsts, g.csc_srcs, g.col_offsets
         w = g.csc_weights if weights is None else weights
-        mask = g.edge_mask_csc
+        mask, rows = g.edge_mask_csc, g.n_dst_pad
     else:
         seg, gather_ids, offsets = g.csr_srcs, g.csr_dsts, g.row_offsets
         w = g.csr_weights if weights is None else weights
-        mask = g.edge_mask
+        mask, rows = g.edge_mask, g.n_src_pad
     if impl == "pallas_onehot":
         # masked like the xla path, so pad edges add nothing even under a
         # weight override (the twin leaves that to the caller)
         return spmm_pallas(offsets, gather_ids, torch.where(mask, w, 0), x,
                            seg_ids=seg)
     msgs = _weigh(torch.index_select(x, 0, gather_ids), w, heads)
-    return segment_reduce(msgs, seg, g.n_pad, op, mask=mask[:, None])
+    return segment_reduce(msgs, seg, rows, op, mask=mask[:, None])
 
 
 def _weigh(xg, w, heads):
@@ -155,7 +162,7 @@ def _weigh(xg, w, heads):
 def _band(x, layout: BandedLayout, k):
     """Band ``k``'s rows of ``x``."""
     lo = k * layout.band_rows
-    return x[lo: min(lo + layout.band_rows, layout.n_pad)]
+    return x[lo: min(lo + layout.band_rows, layout.table_rows)]
 
 
 def _gather_bands(x, layout: BandedLayout, precision):
@@ -282,8 +289,9 @@ def _spmm_banded(g, x, direction, weights, weights_banded,
             "this GraphSlice has no banded layout (it was not built by "
             "GraphSlice.from_host); use impl='xla'"
         )
-    if x.shape[0] != layout.n_pad:
-        raise ValueError(f"x has {x.shape[0]} rows, the graph {layout.n_pad}")
+    if x.shape[0] != layout.table_rows:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph "
+                         f"{layout.table_rows}")
     opposite = "push" if direction == "pull" else "pull"
     layout_b = layout_for(g, opposite, x.shape[-1])
     if weights_banded is not None and (
